@@ -1,0 +1,211 @@
+"""SQP (real-time-iteration) MPC solve, batched (port of the condensed
+interior-point path of ``cmpc_tpu.ops.sqp``).
+
+Each of ``cfg.sqp_iters`` iterations condenses the subproblem at the
+current rollout (ocp/condense.py), solves it with the interior-point
+kernel (ops/pdip.py), and picks the step length per scenario by a merit
+line search over the nonlinear rollout; alpha = 0 is always a candidate.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from cmpc_tpu_torch.config import WalkConfig
+from cmpc_tpu_torch.consts import const
+from cmpc_tpu_torch.models import centroidal as cm
+from cmpc_tpu_torch.ocp import condense, problem
+from cmpc_tpu_torch.ops.pdip import PDIPSettings, pdip_solve
+
+LAM_CAP = 1e4
+ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.0)
+
+
+class SolverState(NamedTuple):
+    """Warm-start state carried across control ticks."""
+
+    z: torch.Tensor   # (B, n_z) primal iterate
+    y: torch.Tensor   # (B, m) dual iterate
+
+
+class SolveInfo(NamedTuple):
+    r_prim: torch.Tensor          # (B,)
+    r_dual: torch.Tensor
+    cost: torch.Tensor
+    lyap_violation: torch.Tensor  # max positive Lyapunov constraint value
+
+
+def init_solver_state(cfg: WalkConfig, x0, mass=None) -> SolverState:
+    """Cold-start iterate: constant state trajectory at x0 (B, 20) and hover
+    forces (mg/8 per contact vertex)."""
+    B = x0.shape[0]
+    nX = 20 * (cfg.N + 1)
+    z = x0.new_zeros(B, cfg.n_z)
+    z[:, :nX] = x0.repeat(1, cfg.N + 1)
+    mass = x0.new_full((B,), 40.0) if mass is None \
+        else torch.as_tensor(mass, dtype=x0.dtype, device=x0.device)
+    fz = mass * cfg.g / 8.0
+    U = x0.new_zeros(B, cfg.N, 32)
+    U[:, :, 2:24:3] = fz[:, None, None]
+    z[:, nX:] = U.reshape(B, -1)
+    y = x0.new_zeros(B, problem.num_constraints(cfg))
+    return SolverState(z=z, y=y)
+
+
+def _rollout_X(x0, U, params: problem.MPCParams, cfg: WalkConfig):
+    """Integrate the dynamics from x0 (B, 20) under U (B, N, 32): a state
+    trajectory (B, N+1, 20) with exactly zero dynamics residual."""
+    polygon = cm.foot_polygon(cfg.foot_length, cfg.foot_width,
+                              device=x0.device, dtype=x0.dtype)
+    xs = [x0]
+    for i in range(cfg.N):
+        xs.append(cm.euler_step(
+            xs[-1], params.com_ref[:, i], params.gamma_l[:, i],
+            params.gamma_r[:, i], U[:, i], params.k1, params.k2,
+            params.mass, cfg.g, polygon, cfg.delta))
+    return torch.stack(xs, dim=1)
+
+
+def prep_warmstart(state: SolverState, params: problem.MPCParams,
+                   cfg: WalkConfig):
+    """Gait-consistent warm-start inputs U (B, N, 32) from the carried
+    iterate: gate the carried vertex forces by the new contact schedule,
+    top up vertical support to ~m g, and seed the swing-foot transfer
+    velocities (see the JAX module for the failures each repair fixes)."""
+    N = cfg.N
+    _, U_ws = problem.split_z(state.z, cfg)
+    B = U_ws.shape[0]
+    U_ws = U_ws.clone()
+    gl_u = params.gamma_l[:, :N, None, None]
+    gr_u = params.gamma_r[:, :N, None, None]
+    fl_ws = U_ws[:, :, 0:12].reshape(B, N, 4, 3) * gl_u
+    fr_ws = U_ws[:, :, 12:24].reshape(B, N, 4, 3) * gr_u
+    fz_tot = fl_ws[..., 2].sum(-1) + fr_ws[..., 2].sum(-1)         # (B,N)
+    n_act = 4.0 * (params.gamma_l[:, :N] + params.gamma_r[:, :N])
+    deficit = (params.mass[:, None] * cfg.g - fz_tot).clamp_min(0.0) \
+        / n_act.clamp_min(1.0)
+    fl_ws[..., 2] += deficit[:, :, None] * gl_u[..., 0]
+    fr_ws[..., 2] += deficit[:, :, None] * gr_u[..., 0]
+    U_ws[:, :, 0:12] = fl_ws.reshape(B, N, 12)
+    U_ws[:, :, 12:24] = fr_ws.reshape(B, N, 12)
+
+    # swing-foot transfer seeding
+    idx_n = torch.arange(N, device=U_ws.device)
+    rows = torch.arange(B, device=U_ws.device)
+
+    def transfer_vel(gamma, x0_pos, pos_ref):
+        stance = gamma[:, 1:] > 0.5
+        land = torch.argmax(stance.to(torch.int8), dim=1)   # first stance
+        k = land + 1
+        has = (gamma[:, 0] < 0.5) & stance.any(dim=1)
+        target = pos_ref[rows, land]
+        v = (target - x0_pos) / (cfg.delta * k.to(x0_pos.dtype))[:, None]
+        mask = (idx_n[None] < k[:, None]) & has[:, None]
+        return torch.where(mask[..., None], v[:, None, :], 0.0), has
+
+    v_l, has_l = transfer_vel(params.gamma_l, params.x0[:, cm.POS_L],
+                              params.pos_ref_l)
+    v_r, has_r = transfer_vel(params.gamma_r, params.x0[:, cm.POS_R],
+                              params.pos_ref_r)
+    U_ws[:, :, 24:27] = torch.where(has_l[:, None, None], v_l,
+                                    U_ws[:, :, 24:27])
+    U_ws[:, :, 27:30] = torch.where(has_r[:, None, None], v_r,
+                                    U_ws[:, :, 27:30])
+    return U_ws
+
+
+def solve_mpc(state: SolverState, params: problem.MPCParams,
+              cfg: WalkConfig):
+    """One batched MPC solve; returns (new SolverState, SolveInfo)."""
+    if cfg.mpc_solver == "condip":
+        return _solve_mpc_condip(state, params, cfg)
+    if cfg.mpc_solver == "admm":
+        raise NotImplementedError(
+            "mpc_solver='admm' is not ported yet (ROADMAP.md §1.12)")
+    raise ValueError(f"unknown mpc_solver {cfg.mpc_solver!r}")
+
+
+def _solve_mpc_condip(state: SolverState, params: problem.MPCParams,
+                      cfg: WalkConfig):
+    N = cfg.N
+    nU = 32 * N
+    B = params.x0.shape[0]
+    dt, dev = params.x0.dtype, params.x0.device
+    l_c = const(("bounds_l", cfg), lambda: problem.constraint_bounds(cfg)[0],
+                dev, dt)
+    u_c = const(("bounds_u", cfg), lambda: problem.constraint_bounds(cfg)[1],
+                dev, dt)
+    n_eq = 20 * (N + 1)
+
+    # proximal weights over dU: foot-velocity / yaw-rate inputs exempt
+    w_prox_u = torch.ones(N, 32, dtype=dt, device=dev)
+    w_prox_u[:, 24:] = 1e-3
+    w_prox_u = w_prox_u.reshape(-1)
+    settings = PDIPSettings(iters=cfg.pdip_iters, refine=cfg.pdip_refine)
+
+    U = prep_warmstart(state, params, cfg)
+
+    nA = len(ALPHAS)
+    # the line search evaluates all step lengths at once as a batch of
+    # nA * B candidates (alpha-major)
+    params_rep = problem.MPCParams(*(
+        f.repeat(nA, *([1] * (f.dim() - 1))) for f in params))
+
+    def merit_of(Xc, Uc):
+        zc = problem.join_z(Xc, Uc)
+        c = problem.constraints(zc, params_rep, cfg)[:, n_eq:]
+        viol = ((c - u_c[n_eq:]).clamp_min(0.0)
+                + (l_c[n_eq:] - c).clamp_min(0.0)).sum(1)
+        return problem.cost_value(zc, params_rep, cfg) \
+            + condense.W_ELASTIC * viol
+
+    ns = condense.n_slack(cfg)
+    lam_soft = state.y[:, n_eq:n_eq + ns].clamp(0.0, LAM_CAP)
+
+    X = _rollout_X(params.x0, U, params, cfg)
+    prox = params.x0.new_full((B,), cfg.condip_prox)
+    r_dual = params.x0.new_zeros(B)
+    rows = torch.arange(B, device=dev)
+    for _ in range(cfg.sqp_iters):
+        z = problem.join_z(X, U)
+        qp = condense.build(z, params, cfg, prox, w_prox_u,
+                            lam_soft=lam_soft, soft=cfg.condip_soft,
+                            structured=True)
+        res = pdip_solve(qp.H, qp.g, qp.C, qp.d, settings,
+                         C_blk=qp.C_blk, d_blk=qp.d_blk)
+        dU = torch.nan_to_num(res.v[:, :nU], nan=0.0, posinf=0.0,
+                              neginf=0.0).reshape(B, N, 32)
+        lam_new = torch.nan_to_num(res.lam[:, :ns] * qp.row_scale[:, :ns])
+        lam_soft = lam_new.clamp(0.0, LAM_CAP)
+
+        U_cands = torch.stack([U + a * dU for a in ALPHAS])      # (nA,B,N,32)
+        U_flat = U_cands.reshape(nA * B, N, 32)
+        X_flat = _rollout_X(params_rep.x0, U_flat, params_rep, cfg)
+        merits = merit_of(X_flat, U_flat).reshape(nA, B)
+        best = torch.argmin(torch.nan_to_num(merits, nan=float("inf")),
+                            dim=0)                                # (B,)
+        U = U_cands[best, rows]
+        X = X_flat.reshape(nA, B, N + 1, 20)[best, rows]
+        rejected = best == nA - 1
+        small = best <= 1           # alpha >= 0.5 accepted
+        prox = torch.where(rejected, prox * 16.0,
+                           torch.where(small,
+                                       (prox / 4.0).clamp_min(
+                                           cfg.condip_prox), prox))
+        r_dual = res.r_dual
+
+    z = problem.join_z(X, U)
+    c_final = problem.constraints(z, params, cfg)
+    viol_all = (c_final - u_c).clamp_min(0.0) \
+        + (l_c - c_final).clamp_min(0.0)
+    lyap = c_final[:, n_eq:n_eq + N]
+    info = SolveInfo(
+        r_prim=viol_all.amax(dim=1), r_dual=r_dual,
+        cost=problem.cost_value(z, params, cfg),
+        lyap_violation=lyap.clamp_min(0.0).amax(dim=1),
+    )
+    y = state.y.clone()
+    y[:, n_eq:n_eq + ns] = lam_soft
+    return SolverState(z=z, y=y), info

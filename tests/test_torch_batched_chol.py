@@ -1,0 +1,144 @@
+"""The port's batched SPD factorization/inversion (cmpc_tpu_torch.ops.
+batched_chol) against the JAX package's, and the tile kernel's plain
+version against the Pallas kernel it replaces.
+
+CPU tensors take the plain torch version of the tile kernel; the
+hand-written CUDA kernel is tested on the card by test_torch_cuda.py."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from cmpc_tpu.ops import batched_chol as jbc
+from cmpc_tpu_torch.ops import batched_chol as tbc
+
+# the suite runs several worker processes per host: one intra-op thread
+# each (more only oversubscribes the cores and slows every worker)
+torch.set_num_threads(1)
+
+
+@pytest.fixture()
+def x64():
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", old)
+
+
+def _spd(rng, B, n, scale=0.1, shift=10.0, dtype=np.float64):
+    A = rng.normal(size=(B, n, n)) * scale
+    return (A @ np.swapaxes(A, 1, 2) + shift * np.eye(n)).astype(dtype)
+
+
+@pytest.mark.parametrize("n,nb,B", [(320, 32, 3), (320, 64, 2), (64, 32, 2)])
+def test_blocked_cholesky_matches_jax(n, nb, B, x64):
+    M = _spd(np.random.default_rng(0), B, n)
+    Lj, Dj = jbc.blocked_cholesky(jnp.asarray(M), nb)
+    Lt, Dt = tbc.blocked_cholesky(torch.tensor(M), nb)
+    np.testing.assert_allclose(Lt.numpy(), np.asarray(Lj), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(Dt.numpy(), np.asarray(Dj), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(Lt.numpy(), np.linalg.cholesky(M), rtol=0,
+                               atol=1e-12)
+
+
+def test_tri_inv_blocksub_matches_jax(x64):
+    M = _spd(np.random.default_rng(3), 2, 320)
+    Lj, Dj = jbc.blocked_cholesky(jnp.asarray(M), 64)
+    Xj = jbc.tri_inv_blocksub(Lj, Dj)
+    Lt, Dt = tbc.blocked_cholesky(torch.tensor(M), 64)
+    Xt = tbc.tri_inv_blocksub(Lt, Dt)
+    np.testing.assert_allclose(Xt.numpy(), np.asarray(Xj), rtol=0,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("n,nb", [(320, 64), (96, 32)])
+def test_spd_inverse_matches_jax(n, nb, x64):
+    M = _spd(np.random.default_rng(1), 2, n, shift=5.0)
+    inv_j = np.asarray(jbc.spd_inverse(jnp.asarray(M), nb))
+    inv_t = tbc.spd_inverse(torch.tensor(M), nb).numpy()
+    np.testing.assert_allclose(inv_t, inv_j, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(inv_t, np.linalg.inv(M), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", [(75, 75), (2, 3, 75, 75), (1, 331, 331)])
+def test_spd_inverse_any_pads_and_batches(shape, x64):
+    *lead, n, _ = shape
+    M = _spd(np.random.default_rng(2), int(np.prod(lead or [1])), n,
+             shift=5.0).reshape(shape)
+    nb = 32 if n == 75 else 64
+    inv_j = np.asarray(jbc.spd_inverse_any(jnp.asarray(M), nb=nb))
+    inv_t = tbc.spd_inverse_any(torch.tensor(M), nb=nb)
+    assert tuple(inv_t.shape) == shape
+    np.testing.assert_allclose(inv_t.numpy(), inv_j, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(tbc.spd_inverse64(torch.tensor(M)).numpy(),
+                               np.linalg.inv(M), rtol=0, atol=1e-12)
+
+
+def test_f32_ill_conditioned():
+    """The interior-point endgame's ~1e6 complementarity spread
+    (test_batched_chol.py::test_f32_ill_conditioned): rel < 1e-4."""
+    rng = np.random.default_rng(3)
+    n = 320
+    A = rng.normal(size=(2, n, n)).astype(np.float32) * 0.1
+    d = (10.0 ** rng.uniform(-1, 5, size=(2, n))).astype(np.float32)
+    M = A @ np.swapaxes(A, 1, 2) + np.einsum(
+        "bi,ij->bij", d, np.eye(n, dtype=np.float32))
+    Minv = tbc.spd_inverse(torch.tensor(M), nb=64)
+    assert Minv.dtype == torch.float32
+    ref = np.linalg.inv(M.astype(np.float64))
+    rel = np.abs(Minv.numpy().astype(np.float64) - ref).max() \
+        / np.abs(ref).max()
+    assert rel < 1e-4, rel
+
+
+def test_tile_functions_match_jax(x64):
+    """_chol_tile (both its LAPACK fast path and the elimination loop) and
+    _tri_inv_tile against the JAX scan/Neumann versions, including a
+    semidefinite tile whose zero pivot hits the 1e-30 clamp."""
+    rng = np.random.default_rng(5)
+    M = _spd(rng, 3, 64, scale=0.3, shift=5.0)
+    M[2, 7, :] = 0.0
+    M[2, :, 7] = 0.0                   # pivot 7 is exactly zero
+    Lj = np.asarray(jbc._chol_tile(jnp.asarray(M)))
+    Xj = np.asarray(jbc._tri_inv_tile(jnp.asarray(Lj)))
+    assert Lj[2, 7, 7] == pytest.approx(1e-15)
+    Lt = tbc._chol_tile(torch.tensor(M))
+    np.testing.assert_allclose(Lt.numpy(), Lj, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(tbc._chol_tile_loop(torch.tensor(M)).numpy(),
+                               Lj, rtol=0, atol=1e-12)
+    Xt = tbc._tri_inv_tile(torch.tensor(Lj[:2])).numpy()
+    np.testing.assert_allclose(Xt, Xj[:2], rtol=0, atol=1e-12)
+
+
+def test_chol_inv_tile_ref_matches_pallas_kernel_interpret():
+    """The plain version of the ported kernel against the Pallas kernel it
+    replaces (_chol_inv_tile_pallas, interpret mode) at the production tile
+    layout: B=128 tiles of 64x64, f32, rtol=atol=2e-5 on L and L^-1."""
+    rng = np.random.default_rng(7)
+    M = _spd(rng, 128, 64, scale=0.3, shift=5.0, dtype=np.float32)
+    Lp, Xp = jbc._chol_inv_tile_pallas(jnp.asarray(M), interpret=True)
+    Lt, Xt = tbc.chol_inv_tile_ref(torch.tensor(M))
+    np.testing.assert_allclose(Lt.numpy(), np.asarray(Lp), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(Xt.numpy(), np.asarray(Xp), rtol=2e-5,
+                               atol=2e-5)
+    assert np.all(np.triu(np.asarray(Lp), 1) == 0)
+    assert np.all(np.triu(Xt.numpy(), 1) == 0)
+
+
+def test_wrapper_dispatch_cpu_and_refusal():
+    """CPU tensors take the plain version (no launch is counted); a device
+    with no kernel raises instead of falling back."""
+    M = torch.tensor(_spd(np.random.default_rng(8), 2, 64, dtype=np.float32))
+    n0 = tbc.LAUNCHES["chol_inv_tile"]
+    L, X = tbc.chol_inv_tile(M)
+    Lr, Xr = tbc.chol_inv_tile_ref(M)
+    assert torch.equal(L, Lr) and torch.equal(X, Xr)
+    assert tbc.LAUNCHES["chol_inv_tile"] == n0
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tbc.chol_inv_tile(torch.empty(2, 64, 64, device="meta"))
+

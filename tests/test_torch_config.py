@@ -1,0 +1,124 @@
+"""The PyTorch port's static configuration, entry points and import hygiene:
+WalkConfig, the gait timing tables and the scenarios must equal the JAX
+package's; the port must never import JAX; the CLI runs on the CPU and
+refuses a missing card."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from cmpc_tpu import config as jconfig
+from cmpc_tpu.plan import timing as jtiming
+from cmpc_tpu_torch import config as tconfig
+from cmpc_tpu_torch.plan import timing as ttiming
+
+# the suite runs several worker processes per host: one intra-op thread
+# each (more only oversubscribes the cores and slows every worker)
+torch.set_num_threads(1)
+
+CFG_VARIANTS = [dict(), dict(num_steps=5), dict(num_steps=24, N=8),
+                dict(mpc_rate=2, first_swing="lfoot")]
+
+
+def test_walkconfig_fields_and_defaults():
+    jf = [(f.name, f.default) for f in dataclasses.fields(jconfig.WalkConfig)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(tconfig.WalkConfig)]
+    assert tf == jf
+
+
+@pytest.mark.parametrize("kw", CFG_VARIANTS)
+def test_walkconfig_properties(kw):
+    j, t = jconfig.WalkConfig(**kw), tconfig.WalkConfig(**kw)
+    for name in ("eta", "delta", "total_ticks", "pad_ticks", "n_x", "n_u",
+                 "n_z"):
+        assert getattr(t, name) == getattr(j, name), name
+    np.testing.assert_array_equal(tconfig.default_vref(t.num_steps),
+                                  jconfig.default_vref(j.num_steps))
+
+
+@pytest.mark.parametrize("kw", CFG_VARIANTS)
+def test_timing_tables_equal(kw):
+    j = jtiming.build_timing(jconfig.WalkConfig(**kw))
+    t = ttiming.build_timing(tconfig.WalkConfig(**kw))
+    for f in dataclasses.fields(jtiming.GaitTiming):
+        a, b = getattr(j, f.name), getattr(t, f.name)
+        np.testing.assert_array_equal(np.asarray(b), np.asarray(a),
+                                      err_msg=f.name)
+        assert np.asarray(b).dtype == np.asarray(a).dtype, f.name
+
+
+@pytest.mark.parametrize("which", ["nominal", "payload"])
+def test_scenarios_equal(which):
+    jc, tc = jconfig.WalkConfig(), tconfig.WalkConfig()
+    if which == "nominal":
+        j = jconfig.nominal_scenario(jc)
+        t = tconfig.nominal_scenario(tc, dtype=torch.float32)
+    else:
+        j = jconfig.payload_scenario(jc, onset_tick=120)
+        t = tconfig.payload_scenario(tc, onset_tick=120, dtype=torch.float32)
+    assert t._fields == j._fields
+    for name in j._fields:
+        a = np.asarray(getattr(j, name))
+        b = getattr(t, name)
+        assert b.shape == (1,) + a.shape, name
+        np.testing.assert_array_equal(b[0].numpy(), a, err_msg=name)
+        assert b.is_floating_point() == np.issubdtype(a.dtype, np.floating)
+
+
+def test_scenario_to_and_repeat():
+    sc = tconfig.nominal_scenario(tconfig.WalkConfig()).repeat(3)
+    s64 = sc.to(dtype=torch.float64)
+    assert all(v.shape[0] == 3 for v in s64)
+    assert s64.k1.dtype == torch.float64 and s64.vref.shape == (3, 20, 3)
+    assert s64.push_start.dtype == torch.int64
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import pkgutil, importlib, sys\n"
+        "import cmpc_tpu_torch\n"
+        "for m in pkgutil.walk_packages(cmpc_tpu_torch.__path__, "
+        "'cmpc_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'cmpc_tpu' or k.startswith('cmpc_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len([k for k in sys.modules "
+        "if k.startswith('cmpc_tpu_torch')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_cli_walk_cpu(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-m", "cmpc_tpu_torch", "walk", "--device", "cpu",
+         "--ticks", "20", "--out", str(tmp_path)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["ticks"] == 20 and summary["device"] == "cpu"
+    assert summary["com_max_err_xy"] < 0.05
+    assert (tmp_path / "trace.npz").exists()
+
+
+def test_cli_cuda_without_card_raises(monkeypatch):
+    from cmpc_tpu_torch import __main__ as cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["walk", "--device", "cuda", "--ticks", "1"])
+
+
+@pytest.mark.parametrize("cmd", ["walk-wb", "sweep", "ismpc"])
+def test_cli_unported_commands_raise(cmd):
+    from cmpc_tpu_torch import __main__ as cli
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cli.main([cmd])

@@ -1,0 +1,139 @@
+"""The port on the card: the hand-written tile kernel against its plain
+version and numpy, and the main path (batched solve, closed-loop ticks)
+through the kernel against the same code on the CPU, both in f64.
+
+Every test here is marked ``cuda`` and skips without a card.  The file
+imports no JAX, so it also runs on a GPU machine that has none:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from cmpc_tpu_torch.config import WalkConfig, nominal_scenario
+from cmpc_tpu_torch.ocp import assemble
+from cmpc_tpu_torch.ops import batched_chol as tbc, sqp
+from cmpc_tpu_torch.plan import com_ref as crm, footsteps, timing as tm
+from cmpc_tpu_torch.sim import closed_loop
+
+pytestmark = pytest.mark.cuda
+
+CFG = WalkConfig()
+ASSET = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "assets", "walk_x0.npz")
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _spd(rng, B, n, scale=0.3, shift=5.0):
+    A = rng.normal(size=(B, n, n)) * scale
+    return A @ np.swapaxes(A, 1, 2) + shift * np.eye(n)
+
+
+@pytest.mark.parametrize("B", [1, 7, 256])
+def test_cuda_kernel_matches_plain(B, cuda):
+    M = _spd(np.random.default_rng(B), B, 64)
+    M32 = torch.tensor(M, dtype=torch.float32, device=cuda)
+    n0 = tbc.LAUNCHES["chol_inv_tile"]
+    L, X = tbc.chol_inv_tile(M32)
+    assert tbc.LAUNCHES["chol_inv_tile"] == n0 + 1
+    Lr, Xr = tbc.chol_inv_tile_ref(M32)
+    torch.testing.assert_close(L, Lr, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(X, Xr, rtol=2e-5, atol=2e-5)
+    assert torch.triu(L, 1).abs().max().item() == 0.0
+    assert torch.triu(X, 1).abs().max().item() == 0.0
+    L64, X64 = tbc.chol_inv_tile(torch.tensor(M, device=cuda))
+    Lnp = np.linalg.cholesky(M)
+    np.testing.assert_allclose(L64.cpu().numpy(), Lnp, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(X64.cpu().numpy(), np.linalg.inv(Lnp),
+                               rtol=0, atol=1e-12)
+
+
+def test_cuda_kernel_rejects_bad_input(cuda):
+    good = torch.eye(64, device=cuda).expand(2, 64, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbc.chol_inv_tile(good)
+    with pytest.raises(ValueError, match="tiles"):
+        tbc.chol_inv_tile(torch.eye(32, device=cuda).repeat(2, 1, 1))
+    with pytest.raises(TypeError):
+        tbc.chol_inv_tile(good.contiguous().half())
+
+
+def test_cuda_spd_inverse64_matches_numpy(cuda):
+    """The padded path (331 -> 384, 6 tiles) through the kernel."""
+    M = _spd(np.random.default_rng(9), 4, 331, scale=0.1)
+    inv_gpu = tbc.spd_inverse64(torch.tensor(M, device=cuda)).cpu().numpy()
+    np.testing.assert_allclose(inv_gpu, np.linalg.inv(M), rtol=0,
+                               atol=1e-12)
+
+
+def _recorded_params(device, ticks):
+    """MPCParams at recorded walk ticks, built by the port's own planner
+    (as chip_smoke.py replays them), f64."""
+    f64 = torch.float64
+    timing = tm.build_timing(CFG)
+    sc = nominal_scenario(CFG, device=device, dtype=f64)
+    plan = footsteps.plan_footsteps(sc.vref, CFG, timing, sc.foot_y,
+                                    sc.step_y_offset)
+    pl, pr = footsteps.contact_pose_refs(plan, timing)
+    cref = crm.build_com_ref(plan, CFG, timing, sc.foot_y)
+    B = len(ticks)
+
+    def rep(x):
+        return x.expand(B, *x.shape[1:])
+
+    refs = assemble.RefArrays(com=crm.ComRef(*(rep(x) for x in cref)),
+                              pose_ref_l=rep(pl), pose_ref_r=rep(pr))
+    x0 = torch.tensor(np.load(ASSET)["x0"], dtype=f64, device=device)
+    tk = torch.tensor(ticks, device=device)
+    return assemble.gather_params(tk, x0[tk], refs, timing, CFG,
+                                  rep(sc.k1), rep(sc.k2), rep(sc.mpc_mass))
+
+
+def test_cuda_solve_matches_cpu(cuda):
+    """One batched solve (3 SQP x 8 IPM iterations) through the kernel: 120
+    launches, and the same z and residuals as the CPU run of the same code
+    (f64, 1e-8 — the tolerance the CPU solve is held to against JAX)."""
+    ticks = [250, 262, 300, 420]
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = _recorded_params(dev, ticks)
+        st = sqp.init_solver_state(CFG, p.x0, mass=p.mass)
+        n0 = tbc.LAUNCHES["chol_inv_tile"]
+        out[dev.type] = sqp.solve_mpc(st, p, CFG)
+        launches = tbc.LAUNCHES["chol_inv_tile"] - n0
+        assert launches == (120 if dev.type == "cuda" else 0)
+    (sc_, ic), (sg, ig) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(sg.z.cpu().numpy(), sc_.z.numpy(), rtol=0,
+                               atol=1e-8)
+    for name in ("r_prim", "lyap_violation"):
+        np.testing.assert_allclose(getattr(ig, name).cpu().numpy(),
+                                   getattr(ic, name).numpy(), rtol=0,
+                                   atol=1e-8, err_msg=name)
+
+
+def test_cuda_rollout_matches_cpu(cuda):
+    """The first eight closed-loop ticks under a 3 N lateral push (so the
+    plant moves from rest) on the card and on the CPU, f64: the plant state
+    at 1e-8."""
+    res = {}
+    for dev in (torch.device("cpu"), cuda):
+        sc = nominal_scenario(CFG, push=(0.0, 3.0, 0.0), push_window=(-1, 8),
+                              device=dev, dtype=torch.float64)
+        carry, _ = closed_loop.rollout(sc, CFG, T_sim=8)
+        res[dev.type] = carry.plant
+    for name in res["cpu"]._fields:
+        np.testing.assert_allclose(getattr(res["cuda"], name).cpu().numpy(),
+                                   getattr(res["cpu"], name).numpy(),
+                                   rtol=0, atol=1e-8, err_msg=name)

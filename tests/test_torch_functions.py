@@ -1,0 +1,286 @@
+"""Function-level parity of the PyTorch port with the JAX package, in f64:
+the centroidal model, the OCP (cost, constraints, linearization), the
+structured condensing and the interior-point solver, each fed the same
+numpy inputs made from a seed.  Plus the landing-tick KKT check of
+tests/test_pdip.py on the port's solver, in f64 and f32."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from cmpc_tpu.config import WalkConfig as JCfg
+from cmpc_tpu.models import centroidal as jcm
+from cmpc_tpu.ocp import condense as jcond, problem as jprob
+from cmpc_tpu.ops import pdip as jpdip
+from cmpc_tpu_torch import convert
+from cmpc_tpu_torch.config import WalkConfig
+from cmpc_tpu_torch.models import centroidal as tcm
+from cmpc_tpu_torch.ocp import condense as tcond, problem as tprob
+from cmpc_tpu_torch.ops import pdip as tpdip, sqp as tsqp
+
+# the suite runs several worker processes per host: one intra-op thread
+# each (more only oversubscribes the cores and slows every worker)
+torch.set_num_threads(1)
+
+CFG, JCFG = WalkConfig(), JCfg()
+B = 3
+TOL = 1e-10
+
+
+@pytest.fixture(autouse=True)
+def x64():
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", old)
+
+
+def random_params(rng, N=CFG.N):
+    gl = (rng.uniform(size=(B, N + 1)) > 0.4).astype(np.float64)
+    gr = np.where(gl > 0, (rng.uniform(size=(B, N + 1)) > 0.5), 1.0)
+    x0 = rng.normal(size=(B, 20)) * 0.05
+    x0[:, 2] += CFG.h
+    com_ref = rng.normal(size=(B, N, 9)) * 0.05
+    com_ref[:, :, 2] += CFG.h
+    return dict(
+        x0=x0, com_ref=com_ref,
+        pos_ref_l=rng.normal(size=(B, N, 3)) * 0.1,
+        pos_ref_r=rng.normal(size=(B, N, 3)) * 0.1,
+        yaw_ref_l=rng.normal(size=(B, N)) * 0.1,
+        yaw_ref_r=rng.normal(size=(B, N)) * 0.1,
+        gamma_l=gl, gamma_r=gr.astype(np.float64),
+        k1=rng.uniform(3.0, 5.0, B), k2=rng.uniform(0.05, 1.0, B),
+        mass=rng.uniform(38.0, 42.0, B))
+
+
+def random_z(rng, p):
+    """A plausible base point: states near x0, hover-ish forces."""
+    X = p["x0"][:, None, :] + 0.02 * rng.normal(size=(B, CFG.N + 1, 20))
+    U = rng.normal(size=(B, CFG.N, 32))
+    U[:, :, 2:24:3] += 50.0
+    return np.concatenate([X.reshape(B, -1), U.reshape(B, -1)], axis=1)
+
+
+def jparams(p):
+    return jprob.MPCParams(**{k: jnp.asarray(v) for k, v in p.items()})
+
+
+def vm(fn):
+    return jax.jit(jax.vmap(fn))
+
+
+def close(t, j, tol=TOL, rtol=0.0):
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(j),
+                               rtol=rtol, atol=tol)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_euler_step(seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, 20))
+    r = rng.normal(size=(B, 9))
+    u = rng.normal(size=(B, 32)) * 30
+    gl = np.array([1.0, 0.0, 1.0])
+    gr = np.array([1.0, 1.0, 0.0])
+    k1, k2, m = rng.uniform(3, 5, B), rng.uniform(0, 1, B), rng.uniform(
+        38, 42, B)
+    poly_j = jcm.foot_polygon(CFG.foot_length, CFG.foot_width)
+    j = vm(lambda *a: jcm.euler_step(*a, CFG.g, poly_j, CFG.delta))(
+        *map(jnp.asarray, (x, r, gl, gr, u, k1, k2, m)))
+    poly_t = tcm.foot_polygon(CFG.foot_length, CFG.foot_width,
+                              dtype=torch.float64)
+    t = tcm.euler_step(*map(torch.tensor, (x, r, gl, gr, u, k1, k2, m)),
+                       CFG.g, poly_t, CFG.delta)
+    close(t, j)
+    # the reference's quirks: theta_hat does not enter the force balance,
+    # and a foot in contact does not move
+    dx = tcm.centroidal_dynamics(*map(torch.tensor, (x, r, gl, gr, u, k1,
+                                                     k2, m)), CFG.g, poly_t)
+    x2 = x.copy()
+    x2[:, 9:12] += 1.0
+    dx2 = tcm.centroidal_dynamics(*map(torch.tensor, (x2, r, gl, gr, u, k1,
+                                                      k2, m)), CFG.g, poly_t)
+    assert torch.equal(dx[:, 3:6], dx2[:, 3:6])
+    assert torch.all(dx[0, 12:20] == 0) and torch.all(dx[1, 16:20] == 0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_constraints_and_cost(seed):
+    rng = np.random.default_rng(seed)
+    p = random_params(rng)
+    z = random_z(rng, p)
+    tp = convert.params_from_numpy(p)
+    jc = vm(lambda zz, pp: jprob.constraints(zz, pp, JCFG))(
+        jnp.asarray(z), jparams(p))
+    close(tprob.constraints(torch.tensor(z), tp, CFG), jc)
+    jv = vm(lambda zz, pp: jprob.cost_value(zz, pp, JCFG))(
+        jnp.asarray(z), jparams(p))
+    close(tprob.cost_value(torch.tensor(z), tp, CFG), jv, tol=0.0,
+          rtol=1e-12)
+    lj, uj = jprob.constraint_bounds(JCFG)
+    lt, ut = tprob.constraint_bounds(CFG)
+    np.testing.assert_array_equal(lt, lj)
+    np.testing.assert_array_equal(ut, uj)
+    assert tprob.num_constraints(CFG) == jprob.num_constraints(JCFG)
+
+
+def test_cost_quadratic_parts():
+    rng = np.random.default_rng(2)
+    p = random_params(rng)
+    j = vm(lambda pp: jprob.cost_quadratic_parts(pp, JCFG))(jparams(p))
+    t = tprob.cost_quadratic_parts(convert.params_from_numpy(p), CFG)
+    for a, b in zip(t, j):
+        close(a, b)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_linearize_parts(seed):
+    rng = np.random.default_rng(seed)
+    p = random_params(rng)
+    z = random_z(rng, p)
+    j = vm(lambda zz, pp: jprob.linearize_parts(zz, pp, JCFG))(
+        jnp.asarray(z), jparams(p))
+    t = tprob.linearize_parts(torch.tensor(z), convert.params_from_numpy(p),
+                              CFG)
+    assert t._fields == j._fields
+    for name in j._fields:
+        close(getattr(t, name), getattr(j, name))
+
+
+def _qp_inputs(seed):
+    rng = np.random.default_rng(seed)
+    p = random_params(rng)
+    z = random_z(rng, p)
+    nU = 32 * CFG.N
+    w = np.ones((CFG.N, 32))
+    w[:, 24:] = 1e-3
+    lam = rng.uniform(0.0, 50.0, size=(B, CFG.N + 1))
+    prox = rng.uniform(0.1, 2.0, size=B)
+    return p, z, w.reshape(nU), lam, prox
+
+
+@pytest.mark.parametrize("soft", [False, True])
+def test_condense_build_structured(soft):
+    p, z, w, lam, prox = _qp_inputs(3)
+    j = vm(lambda zz, pp, pr, ll: jcond.build(
+        zz, pp, JCFG, pr, jnp.asarray(w), lam_soft=ll, soft=soft,
+        structured=True))(jnp.asarray(z), jparams(p), jnp.asarray(prox),
+                          jnp.asarray(lam))
+    t = tcond.build(torch.tensor(z), convert.params_from_numpy(p), CFG,
+                    torch.tensor(prox), torch.tensor(w),
+                    lam_soft=torch.tensor(lam), soft=soft, structured=True)
+    nv = 32 * CFG.N + (CFG.N + 1 if soft else 0)
+    assert tuple(t.H.shape) == (B, nv, nv)
+    for name in ("H", "g", "C", "d", "C_blk", "d_blk", "E", "row_scale"):
+        a, b = getattr(t, name), getattr(j, name)
+        scale = max(1.0, float(np.abs(np.asarray(b)).max()))
+        close(a, b, tol=TOL * scale)
+
+
+def test_condense_dense_form_not_ported():
+    p, z, w, lam, prox = _qp_inputs(4)
+    with pytest.raises(NotImplementedError):
+        tcond.build(torch.tensor(z), convert.params_from_numpy(p), CFG, 0.1,
+                    torch.tensor(w), structured=False)
+
+
+def test_pdip_solve_small_qp():
+    """A QP below the blocked-inverse size (n < 128), dense rows only: the
+    LAPACK-Cholesky branch of the Newton inverse, against JAX at 1e-8."""
+    rng = np.random.default_rng(6)
+    n, m = 24, 40
+    A = rng.normal(size=(B, n, n))
+    H = A @ np.swapaxes(A, 1, 2) + np.eye(n)
+    g = rng.normal(size=(B, n)) * 10.0
+    C = rng.normal(size=(B, m, n))
+    d = rng.uniform(0.1, 1.0, size=(B, m))
+    qp = (H, g, C, d)
+    s = jpdip.PDIPSettings(iters=15)
+    j = vm(lambda *a: jpdip.pdip_solve(*a, s))(*map(jnp.asarray, qp))
+    t = tpdip.pdip_solve(*map(torch.tensor, qp), tpdip.PDIPSettings(iters=15))
+    for name in j._fields:
+        close(getattr(t, name), getattr(j, name), tol=1e-8)
+
+
+def _landing_params():
+    """tests/test_pdip.py::_walking_params: left support, the right foot
+    lands at node 6, walking-speed CoM velocity."""
+    N, h = CFG.N, CFG.h
+    x0 = np.zeros(20)
+    x0[0:3] = [0.0, 0.0, h]
+    x0[3:6] = [0.15, 0.02, 0.0]
+    x0[13:16] = [0.0, 0.1, 0.0]
+    x0[17:20] = [0.1, -0.1, 0.0]
+    com_ref = np.zeros((N, 9))
+    com_ref[:, 2] = h
+    com_ref[:, 0] = 0.01 * np.arange(1, N + 1)
+    com_ref[:, 3] = 0.15
+    p = dict(x0=x0, com_ref=com_ref,
+             pos_ref_l=np.tile([0.0, 0.1, 0.0], (N, 1)),
+             pos_ref_r=np.tile([0.25, -0.1, 0.0], (N, 1)),
+             yaw_ref_l=np.zeros(N), yaw_ref_r=np.zeros(N),
+             gamma_l=np.ones(N + 1),
+             gamma_r=np.concatenate([np.zeros(6), np.ones(N + 1 - 6)]),
+             k1=np.asarray(4.0), k2=np.asarray(0.1), mass=np.asarray(40.05))
+    return convert.params_from_numpy({k: np.asarray(v)[None]
+                                      for k, v in p.items()})
+
+
+def _full_rows(qp):
+    """[C; per-stage blocks placed at their columns] as one dense matrix."""
+    C = qp.C[0].numpy()
+    Cb = qp.C_blk[0].numpy()
+    Nb, rb, cb = Cb.shape
+    blk = np.zeros((Nb * rb, C.shape[1]))
+    for i in range(Nb):
+        blk[i * rb:(i + 1) * rb, 32 * i:32 * i + cb] = Cb[i]
+    return (np.concatenate([C, blk]),
+            np.concatenate([qp.d[0].numpy(), qp.d_blk[0].numpy().ravel()]))
+
+
+def test_pdip_on_landing_tick_kkt():
+    """tests/test_pdip.py::test_pdip_on_condensed_mpc_qp on the port: the
+    IPM must satisfy the KKT conditions of the landing-tick QP; f64:
+    r_stat < 1e-8; f32: r_stat < 0.15 (the JAX package's own bound)."""
+    p = _landing_params()
+    state = tsqp.init_solver_state(CFG, p.x0, mass=p.mass)
+    U = tsqp.prep_warmstart(state, p, CFG)
+    X = tsqp._rollout_X(p.x0, U, p, CFG)
+    z = tprob.join_z(X, U)
+    nU = 32 * CFG.N
+    qp = tcond.build(z, p, CFG, 0.1, torch.ones(nU, dtype=torch.float64),
+                     lam_soft=None, soft=False, structured=True)
+    Cf, df = _full_rows(qp)
+    H, g = qp.H[0].numpy(), qp.g[0].numpy()
+    scale = max(1.0, np.abs(g).max())
+
+    def kkt(res):
+        v = res.v[0].double().numpy()
+        lam = res.lam[0].double().numpy()
+        assert float(np.maximum(Cf @ v - df, 0.0).max()) < 1e-3
+        assert lam.min() >= 0.0
+        r_stat = np.abs(H @ v + g + Cf.T @ lam).max() / scale
+        comp = np.abs(lam * np.maximum(df - Cf @ v, 0.0)).max() / scale
+        return r_stat, comp
+
+    s = tpdip.PDIPSettings(iters=25)
+    r_stat, comp = kkt(tpdip.pdip_solve(qp.H, qp.g, qp.C, qp.d, s,
+                                        C_blk=qp.C_blk, d_blk=qp.d_blk))
+    assert r_stat < 1e-8, r_stat
+    assert comp < 1e-6, comp
+
+    f32 = [a.float() for a in (qp.H, qp.g, qp.C, qp.d, qp.C_blk, qp.d_blk)]
+    r_stat, comp = kkt(tpdip.pdip_solve(*f32[:4], s, C_blk=f32[4],
+                                        d_blk=f32[5]))
+    assert r_stat < 0.15, r_stat
+    assert comp < 1.0, comp
+
+
+def test_solve_mpc_admm_not_ported():
+    import dataclasses
+    p = _landing_params()
+    state = tsqp.init_solver_state(CFG, p.x0, mass=p.mass)
+    with pytest.raises(NotImplementedError, match="1.12"):
+        tsqp.solve_mpc(state, p, dataclasses.replace(CFG, mpc_solver="admm"))
