@@ -4,25 +4,36 @@
     python3 chip_smoke.py
 
 Phases (each prints a line; any failure exits non-zero before the last
-line):
+line, and no phase carries on on the CPU):
   1. device check — needs torch.cuda; prints the card's name and power
      limit as nvidia-smi reports them;
-  2. kernel build — compiles csrc/chol_inv_tile.cu with nvcc (sm_90a);
-  3. kernel vs plain — the tile Cholesky+inverse kernel against its plain
-     torch version on random SPD tiles (f32 at rtol=atol=2e-5, f64 against
-     numpy at 1e-12, exact zeros above the diagonal), the blocked
-     spd_inverse on an ill-conditioned 320x320 case (rel < 1e-4), and both
-     versions' time at (256, 64, 64);
+  2. kernel build — compiles csrc/chol_inv_tile.cu and csrc/chol_tile.cu
+     with nvcc (sm_90a), both at once;
+  3. kernel vs plain — the tile Cholesky+inverse kernel (chol_inv_tile)
+     and the factor-only kernel (chol_tile) against their plain torch
+     versions on random SPD tiles (f32 at rtol=atol=2e-5, f64 against
+     numpy at 1e-12, exact zeros above the diagonal), the two kernels' L
+     against each other bit for bit, the blocked spd_inverse on an
+     ill-conditioned 320x320 case (rel < 1e-4), and at (256, 64, 64) f32
+     each kernel's time beside its plain version's and the library calls'
+     (torch.linalg.cholesky; with solve_triangular for the fused kernel);
   4. production-state solve — 256 recorded walk states
      (assets/walk_x0.npz) replayed as bench.py does: 12-solve warm chain,
      then one timed batched solve, held to bench.py's accuracy gate;
   5. closed-loop walk — 500 ticks of the nominal walk (B=1, f32), held to
      the tracking/solver envelopes of tests/test_closed_loop.py;
-  6. one JSON line of kernel results, then the final status line.
+  6. sweep — 256 differing scenarios (parallel/mesh.make_batch, seed 7)
+     for 700 ticks in chunks of 100 through the chunked runner, f32: pushes
+     from tick 300, payloads from tick 0, adaptation at 261 ... 661;
+  7. IS-MPC baseline — 500 ticks at B=1, held to the envelopes of
+     tests/test_ismpc.py; it launches no hand-written kernel;
+  8. one JSON line of kernel results, then the final status line.
 
-The kernel launch counter is reset just before phase 4 and read after
-phase 5: every launch counted there came from the port's main path.
-Needs no JAX and no network; uses one card.
+Each path of phases 4, 5 and 6 is driven with the kernel launch counters
+set to 0 just before it and read just after: every launch counted there
+came from that path.  The factor-only kernel has no caller on any path
+(nor has the Pallas kernel it replaces in the JAX package); its count is
+that of phase 3.  Needs no JAX and no network; uses one card.
 """
 
 import json
@@ -30,6 +41,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -43,6 +55,13 @@ LYAP_FLOOR_P50 = 1e-2
 N_WARM = 12
 B_SOLVE = 256
 T_WALK = 500
+N_SWEEP, T_SWEEP, CHUNK_SWEEP = 256, 700, 100
+T_ISMPC = 500
+
+# one NVIDIA H100 SXM (NVIDIA's data sheet): device memory rate and the
+# float32 rate outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
 
 
 def fail(msg):
@@ -74,27 +93,48 @@ def random_spd_tiles(rng, B, nb=64):
     return A @ np.swapaxes(A, 1, 2) + 5.0 * np.eye(nb)
 
 
-def check_kernel(bc, dev):
-    """Phase 3.  Returns (max abs err over the f32 checks, kernel ms, plain
-    ms) at (256, 64, 64)."""
+def bound(tiles, nb, n_out, flop_per_tile):
+    """(ms, "bytes" | "operations"): the least time the card could take for
+    a tile kernel on (tiles, nb, nb) f32 input — the larger of its bytes
+    (the input read once, each of n_out outputs written once) over the
+    memory rate and its operations over the f32 rate."""
+    t_bytes = tiles * nb * nb * 4 * (1 + n_out) / PEAK_BYTES_PER_S
+    t_ops = tiles * flop_per_tile / PEAK_F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_kernels(bc, dev):
+    """Phase 3.  Returns per kernel a dict of max_abs_err over the f32
+    checks and the times at (256, 64, 64) f32."""
     import torch
     rng = np.random.default_rng(0)
-    max_err = 0.0
+    err1 = err2 = 0.0
     for B in (1, 7, 256, 1280):
         M = random_spd_tiles(rng, B)
         M32 = torch.tensor(M, dtype=torch.float32, device=dev)
         L, X = bc.chol_inv_tile(M32)
+        L2 = bc.chol_tile(M32)
         Lr, Xr = bc.chol_inv_tile_ref(M32)
+        L2r = bc.chol_tile_ref(M32)
         torch.cuda.synchronize()
-        for name, a, b in (("L", L, Lr), ("X", X, Xr)):
+        for name, a, b in (("chol_inv_tile L", L, Lr),
+                           ("chol_inv_tile X", X, Xr),
+                           ("chol_tile L", L2, L2r)):
             if not torch.allclose(a, b, rtol=2e-5, atol=2e-5):
                 fail(f"kernel f32 {name} disagrees at B={B}: max abs err "
                      f"{(a - b).abs().max().item():.3e}")
-            max_err = max(max_err, (a - b).abs().max().item())
             if torch.triu(a, 1).abs().max().item() != 0.0:
                 fail(f"kernel f32 {name} has nonzero upper triangle, B={B}")
+        err1 = max(err1, (L - Lr).abs().max().item(),
+                   (X - Xr).abs().max().item())
+        err2 = max(err2, (L2 - L2r).abs().max().item())
         M64 = torch.tensor(M, dtype=torch.float64, device=dev)
         L64, X64 = bc.chol_inv_tile(M64)
+        L264 = bc.chol_tile(M64)
+        if not (torch.equal(L2, L) and torch.equal(L264, L64)):
+            fail(f"chol_tile's L is not bit-identical to chol_inv_tile's "
+                 f"at B={B}")
         Lnp = np.linalg.cholesky(M)
         Xnp = np.linalg.inv(Lnp)
         e64 = max(np.abs(L64.cpu().numpy() - Lnp).max(),
@@ -104,8 +144,9 @@ def check_kernel(bc, dev):
         if (torch.triu(L64, 1).abs().max().item() != 0.0
                 or torch.triu(X64, 1).abs().max().item() != 0.0):
             fail(f"kernel f64 has nonzero upper triangle, B={B}")
-        phase(f"  B={B}: f32 max|err| vs plain {max_err:.3e}, f64 max|err| "
-              f"vs numpy {e64:.3e}")
+        phase(f"  B={B}: f32 max|err| vs plain {err1:.3e} (chol_inv_tile) "
+              f"{err2:.3e} (chol_tile), f64 max|err| vs numpy {e64:.3e}, "
+              f"L bit-identical")
 
     # the ill-conditioned Newton-matrix case of tests/test_batched_chol.py
     rng = np.random.default_rng(3)
@@ -122,15 +163,40 @@ def check_kernel(bc, dev):
         fail(f"spd_inverse ill-conditioned rel err {rel:.3e} >= 1e-4")
     phase(f"  spd_inverse ill-conditioned 320x320: rel err {rel:.3e}")
 
+    # times at the sweep's and the production solve's launch shape; the
+    # library calls are a yardstick only (the port never calls them)
     M = torch.tensor(random_spd_tiles(np.random.default_rng(1), 256),
                      dtype=torch.float32, device=dev)
-    plain_ms = cuda_ms(lambda: bc.chol_inv_tile_ref(M), reps=20)
-    kernel_ms = cuda_ms(lambda: bc.chol_inv_tile(M), reps=200)
-    plain_ms2 = cuda_ms(lambda: bc.chol_inv_tile_ref(M), reps=20)
-    kernel_ms2 = cuda_ms(lambda: bc.chol_inv_tile(M), reps=200)
-    phase(f"  (256,64,64) f32: kernel {kernel_ms:.4f} / {kernel_ms2:.4f} ms, "
-          f"plain {plain_ms:.4f} / {plain_ms2:.4f} ms")
-    return max_err, min(kernel_ms, kernel_ms2), min(plain_ms, plain_ms2)
+    eye = torch.eye(64, device=dev).expand(256, 64, 64).contiguous()
+
+    def lib_chol_inv():
+        return torch.linalg.solve_triangular(torch.linalg.cholesky(M), eye,
+                                             upper=False)
+
+    runs = (("chol_inv_tile", "ms", lambda: bc.chol_inv_tile(M), 200),
+            ("chol_inv_tile", "plain_ms", lambda: bc.chol_inv_tile_ref(M),
+             20),
+            ("chol_inv_tile", "library_ms", lib_chol_inv, 50),
+            ("chol_tile", "ms", lambda: bc.chol_tile(M), 200),
+            ("chol_tile", "plain_ms", lambda: bc.chol_tile_ref(M), 20),
+            ("chol_tile", "library_ms", lambda: torch.linalg.cholesky(M),
+             50))
+    out = {"chol_inv_tile": {"max_abs_err": err1},
+           "chol_tile": {"max_abs_err": err2}}
+    for order in (runs, runs[::-1]):          # each twice, in turns
+        for kern, key, fn, reps in order:
+            t = cuda_ms(fn, reps)
+            out[kern][key] = min(t, out[kern].get(key, t))
+    # nb^3/3 operations for the factor, as many again for the inverse of
+    # the triangle
+    for kern, n_out in (("chol_inv_tile", 2), ("chol_tile", 1)):
+        r = out[kern]
+        r["bound_ms"], r["bound_by"] = bound(256, 64, n_out,
+                                             n_out * 64 ** 3 / 3.0)
+        phase(f"  {kern} (256,64,64) f32: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}")
+    return out
 
 
 def production_solve(dev, bc, card):
@@ -168,7 +234,6 @@ def production_solve(dev, bc, card):
         return assemble.gather_params(tk, x0_rec[tk], refs, timing, cfg,
                                       k1, k2, mass)
 
-    n0 = bc.LAUNCHES["chol_inv_tile"]
     t0 = time.perf_counter()
     state = sqp.init_solver_state(cfg, x0_rec[ticks - N_WARM], mass=mass)
     for k in range(N_WARM):
@@ -181,7 +246,7 @@ def production_solve(dev, bc, card):
     new_state, info = sqp.solve_mpc(state, params, cfg)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = bc.LAUNCHES["chol_inv_tile"] - n0
+    launches = bc.LAUNCHES["chol_inv_tile"]
 
     r_prim = info.r_prim.cpu().numpy().astype(np.float64)
     lyap = info.lyap_violation.cpu().numpy().astype(np.float64)
@@ -241,6 +306,97 @@ def closed_loop_walk(dev, card):
     return T_WALK / wall
 
 
+def sweep_phase(dev, bc, card):
+    """Phase 6: 256 differing scenarios, 700 ticks in chunks of 100, f32,
+    through the chunked runner of parallel/mesh."""
+    import torch
+    from cmpc_tpu_torch.config import WalkConfig
+    from cmpc_tpu_torch.parallel import mesh as pm
+
+    cfg = WalkConfig()
+    sc = pm.make_batch(cfg, N_SWEEP, seed=7, device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host, acc, ticks = pm.sweep_chunked(
+        sc, cfg, T_SWEEP, CHUNK_SWEEP,
+        lambda k, n: phase(f"  chunk {k + 1}/{n} done "
+                           f"({time.perf_counter() - t0:.0f} s)"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if ticks != T_SWEEP or host.shape != (N_SWEEP, 4):
+        fail(f"sweep malformed: {ticks} ticks, statistics {host.shape}")
+    if not np.isfinite(host).all():
+        fail("sweep statistics are not all finite")
+
+    # the device-side reductions against numpy on the per-scenario arrays
+    stats = pm.reduce_stats(pm.per_scenario_from_sums(acc, ticks))
+    per = pm.per_scenario_from_sums(host, ticks)
+    fall_rate = float(np.mean(per.max_err > pm.FALL_ERR))
+    for name, got, want in (
+            ("com_rmse_xy", stats.com_rmse_xy, per.rmse.mean()),
+            ("max_tilt", stats.max_tilt, per.max_err.max()),
+            ("fall_rate", stats.fall_rate, fall_rate),
+            ("mean_lyap_violation", stats.mean_lyap_violation,
+             per.lyap.mean()),
+            ("mean_r_prim", stats.mean_r_prim, per.r_prim.mean())):
+        if not np.isclose(float(got), want, rtol=1e-5, atol=1e-12):
+            fail(f"device-side {name} {float(got):.6e} != numpy reduction "
+                 f"{want:.6e}")
+    if int(stats.n) != N_SWEEP:
+        fail(f"device-side n {int(stats.n)} != {N_SWEEP}")
+    alive = per.max_err <= pm.FALL_ERR
+    if not alive.any():
+        fail("every scenario of the sweep fell")
+    rmse_alive = float(per.rmse[alive].mean())
+    phase(f"  fall rate {fall_rate:.4f}, survivors' RMSE {rmse_alive:.4f} m, "
+          f"max err p50 {np.percentile(per.max_err, 50):.4f} p95 "
+          f"{np.percentile(per.max_err, 95):.4f} m, r_prim mean (survivors) "
+          f"{float(per.r_prim[alive].mean()):.3e}")
+    if not (rmse_alive < 0.05 and fall_rate <= 0.15):
+        fail("sweep leaves its envelope (survivors' RMSE < 0.05 m, fall "
+             "rate <= 0.15)")
+    launches = bc.LAUNCHES["chol_inv_tile"]
+    per_solve = 5 * cfg.pdip_iters * cfg.sqp_iters
+    if launches != per_solve * T_SWEEP:
+        fail(f"kernel launches {launches} != {per_solve} x {T_SWEEP}")
+    rate = N_SWEEP * ticks / wall
+    phase(f"  kernel launches {launches} = {per_solve} x {T_SWEEP} ticks of "
+          f"{N_SWEEP} tiles each")
+    phase(f"  {rate:.1f} scenario-ticks/s at B={N_SWEEP} ({wall:.1f} s, "
+          f"{wall / ticks * 1e3:.1f} ms per tick) on {card}")
+    return rate, fall_rate, rmse_alive
+
+
+def ismpc_phase(dev, card):
+    """Phase 7: the IS-MPC baseline, 500 ticks at B=1, f32.  It runs no
+    hand-written kernel."""
+    import torch
+    from cmpc_tpu_torch.config import WalkConfig
+    from cmpc_tpu_torch.sim import ismpc_loop
+
+    cfg = WalkConfig()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, tr = ismpc_loop.run(T_sim=T_ISMPC, cfg=cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    com = tr.com_pos[0].cpu().numpy().astype(np.float64)
+    zmp = tr.zmp_pos[0].cpu().numpy().astype(np.float64)
+    if com.shape != (T_ISMPC, 3) or not np.isfinite(com).all():
+        fail(f"IS-MPC trace malformed: shape {com.shape}")
+    gap = np.abs(com[:, :2] - zmp[:, :2]).max()
+    dz = np.abs(com[:, 2] - cfg.h).max()
+    phase(f"  final com_x {com[-1, 0]:.4f} m, max|com_y| "
+          f"{np.abs(com[:, 1]).max():.4f} m, max|com - zmp| {gap:.4f} m, "
+          f"max|com_z - h| {dz:.2e} m")
+    if not (com[-1, 0] > 0.05 and np.abs(com[:, 1]).max() < 0.15
+            and gap < 0.2 and dz < 0.02):
+        fail("IS-MPC walk leaves the test_ismpc envelopes")
+    phase(f"  {T_ISMPC / wall:.1f} ticks/s at B=1 ({wall:.1f} s) on {card}; "
+          f"no hand-written kernel on this path")
+    return T_ISMPC / wall
+
+
 def main():
     import torch
 
@@ -261,40 +417,75 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "--id=0"],
                          capture_output=True, text=True, timeout=60)
+    smi_line = smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}"
     phase(f"phase 1 device: {card}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
-    print(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}",
-          flush=True)
+    print(smi_line, flush=True)
 
-    # phase 2: build
+    # phase 2: build, one nvcc per source, all started together
+    kernels = ("chol_inv_tile", "chol_tile")
     t0 = time.perf_counter()
-    cuda_build.load_library("chol_inv_tile")
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(cuda_build.load_library, kernels))
     build_s = time.perf_counter() - t0
-    phase(f"phase 2 kernel build: chol_inv_tile.cu in {build_s:.2f} s "
-          f"(nvcc {cuda_build.BUILD_SECONDS['chol_inv_tile']:.2f} s)")
+    phase(f"phase 2 kernel build: {len(kernels)} sources in {build_s:.2f} s ("
+          + ", ".join(f"{k}.cu nvcc {cuda_build.BUILD_SECONDS[k]:.2f} s"
+                      for k in kernels) + ")")
 
-    # phase 3: kernel vs plain
-    phase("phase 3 kernel vs plain")
-    max_err, kernel_ms, plain_ms = check_kernel(bc, dev)
+    # phase 3: kernels vs plain
+    phase("phase 3 kernels vs plain")
+    for k in kernels:
+        bc.LAUNCHES[k] = 0
+    kres = check_kernels(bc, dev)
+    phase3_chol_tile = bc.LAUNCHES["chol_tile"]
 
-    # phases 4-5: the main path, counted
-    bc.LAUNCHES["chol_inv_tile"] = 0
-    phase("phase 4 production-state solve")
-    solves_per_s = production_solve(dev, bc, card)
-    phase("phase 5 closed-loop walk")
-    ticks_per_s = closed_loop_walk(dev, card)
-    launches = bc.LAUNCHES["chol_inv_tile"]
-    if launches == 0:
-        fail("the main path never launched the chol_inv_tile kernel")
+    # phases 4-6: the main paths, each counted on its own
+    def counted(title, run):
+        for k in kernels:
+            bc.LAUNCHES[k] = 0
+        phase(title)
+        out = run()
+        n = bc.LAUNCHES["chol_inv_tile"]
+        if n == 0:
+            fail(f"{title}: the path never launched the chol_inv_tile "
+                 f"kernel")
+        if bc.LAUNCHES["chol_tile"] != 0:
+            fail(f"{title}: chol_tile was launched on a path")
+        return out, n
 
-    print(json.dumps({"kernels": [{
-        "name": "chol_inv_tile", "route": "cuda",
-        "source": "cmpc_tpu_torch/csrc/chol_inv_tile.cu",
-        "replaces": "cmpc_tpu/ops/batched_chol.py:141",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}],
-        "build_s": build_s, "solves_per_s_b256": solves_per_s,
-        "walk_ticks_per_s_b1": ticks_per_s}), flush=True)
+    solves_per_s, n_solve = counted(
+        "phase 4 production-state solve",
+        lambda: production_solve(dev, bc, card))
+    ticks_per_s, n_walk = counted("phase 5 closed-loop walk",
+                                  lambda: closed_loop_walk(dev, card))
+    (sweep_rate, fall_rate, rmse_alive), n_sweep = counted(
+        "phase 6 sweep", lambda: sweep_phase(dev, bc, card))
+
+    # phase 7: the baseline
+    phase("phase 7 IS-MPC baseline")
+    ismpc_ticks_per_s = ismpc_phase(dev, card)
+
+    print(json.dumps({"kernels": [
+        {"name": "chol_inv_tile", "route": "cuda",
+         "source": "cmpc_tpu_torch/csrc/chol_inv_tile.cu",
+         "replaces": "cmpc_tpu/ops/batched_chol.py:141",
+         "launches": n_solve + n_walk + n_sweep,
+         "launches_by_path": {"production_solve": n_solve,
+                              "walk": n_walk, "sweep": n_sweep},
+         **kres["chol_inv_tile"], "library_calls": 2},
+        {"name": "chol_tile", "route": "cuda",
+         "source": "cmpc_tpu_torch/csrc/chol_tile.cu",
+         "replaces": "cmpc_tpu/ops/batched_chol.py:49",
+         "launches": phase3_chol_tile, "on_path": False,
+         "note": "no path calls it, as in the JAX package (its dispatcher "
+                 "has no caller); launches are those of phase 3",
+         **kres["chol_tile"], "library_calls": 1}],
+        "card": smi_line, "build_s": build_s,
+        "solves_per_s_b256": solves_per_s,
+        "walk_ticks_per_s_b1": ticks_per_s,
+        "sweep_scenario_ticks_per_s_b256": sweep_rate,
+        "sweep_fall_rate": fall_rate, "sweep_rmse_survivors": rmse_alive,
+        "ismpc_ticks_per_s_b1": ismpc_ticks_per_s}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,14 @@
-"""Command-line runner: ``python -m cmpc_tpu_torch walk``.
+"""Command-line runner: ``python -m cmpc_tpu_torch <command>``.
 
   walk     the closed-loop walk on the centroidal plant -> trace + summary
            (the flat-ground walk, or --payload for the payload variant),
-           batched over --batch identical scenarios on --device.
+           batched over --batch identical scenarios.
+  sweep    a randomized Monte-Carlo robustness sweep on one device.
+  ismpc    the legacy IS-MPC/LIP baseline closed loop.
 
-walk-wb, sweep and ismpc belong to the JAX package and are not ported yet.
+Every command takes --device (default cuda) and raises where that device
+is missing: none falls back to the CPU.  walk-wb belongs to the JAX
+package and is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,42 +17,33 @@ import argparse
 import json
 import time
 
-_NOT_PORTED = ("walk-wb", "sweep", "ismpc")
+_NOT_PORTED = ("walk-wb",)
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(prog="cmpc_tpu_torch")
-    ap.add_argument("cmd", choices=("walk",) + _NOT_PORTED)
-    ap.add_argument("--out", default="runs/latest",
-                    help="output directory for trace and summary")
-    ap.add_argument("--ticks", type=int, default=None,
-                    help="simulation ticks (default: full walk)")
-    ap.add_argument("--steps", type=int, default=20, help="footstep count")
-    ap.add_argument("--payload", action="store_true",
-                    help="payload scenario (2 kg box, gains k1=7 k2=1)")
-    ap.add_argument("--push", type=float, nargs=3, default=None,
-                    metavar=("FX", "FY", "FZ"),
-                    help="external push force N (default: [0,3,0] for t in "
-                         "(800,900))")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; never falls back)")
-    ap.add_argument("--batch", type=int, default=1,
-                    help="number of identical scenarios run as one batch")
-    args = ap.parse_args(argv)
-    if args.cmd in _NOT_PORTED:
-        raise NotImplementedError(f"{args.cmd}: not yet ported to "
-                                  f"cmpc_tpu_torch (see ROADMAP.md)")
+def _device_arg(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; never falls back)")
 
+
+def _walk_args(p):
+    p.add_argument("--out", default="runs/latest",
+                   help="output directory for trace and summary")
+    p.add_argument("--ticks", type=int, default=None,
+                   help="simulation ticks (default: full walk)")
+    p.add_argument("--steps", type=int, default=20, help="footstep count")
+    p.add_argument("--payload", action="store_true",
+                   help="payload scenario (2 kg box, gains k1=7 k2=1)")
+    p.add_argument("--push", type=float, nargs=3, default=None,
+                   metavar=("FX", "FY", "FZ"),
+                   help="external push force N (default: [0,3,0] for t in "
+                        "(800,900))")
+    _device_arg(p)
+    p.add_argument("--batch", type=int, default=1,
+                   help="number of identical scenarios run as one batch")
+
+
+def _walk(args, device):
     import torch
-
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda requested but no CUDA device is "
-                           "available")
-    # full-f32 matmuls: the JAX package pins Precision.HIGHEST
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
 
     from cmpc_tpu_torch.config import (WalkConfig, nominal_scenario,
                                        payload_scenario)
@@ -86,6 +81,69 @@ def main(argv=None):
     rtrace.save(f"{args.out}/trace.npz", tr, meta=meta)
     print(json.dumps({**summary._asdict(), "device": str(device),
                       "batch": args.batch, "wall_s": wall}))
+
+
+def _sweep(args, device):
+    import torch
+
+    from cmpc_tpu_torch.config import WalkConfig
+    from cmpc_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.time()
+    cfg = WalkConfig(sqp_iters=2, admm_iters=15)
+    batch = pmesh.make_batch(cfg, n=max(args.n, 1), seed=args.seed,
+                             device=device, dtype=torch.float32)
+    stats = pmesh.sweep(batch, cfg, T_sim=args.ticks)
+    out = {k: float(v) for k, v in stats._asdict().items()}
+    out["wall_s"] = time.time() - t0
+    print(json.dumps(out))
+
+
+def _ismpc(args, device):
+    from cmpc_tpu_torch.sim import ismpc_loop
+
+    t0 = time.time()
+    _, tr = ismpc_loop.run(T_sim=args.ticks, device=device)
+    com = tr.com_pos[0].cpu().numpy()
+    zmp = tr.zmp_pos[0].cpu().numpy()
+    print(json.dumps({
+        "ticks": int(com.shape[0]),
+        "final_com": com[-1].tolist(),
+        "zmp_span_y": float(zmp[:, 1].max() - zmp[:, 1].min()),
+        "wall_s": time.time() - t0}))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="cmpc_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    for name in ("walk",) + _NOT_PORTED:
+        _walk_args(sub.add_parser(name))
+    sp = sub.add_parser("sweep")
+    sp.add_argument("--out", default="runs/sweep")
+    sp.add_argument("--n", type=int, default=64, help="scenario count")
+    sp.add_argument("--ticks", type=int, default=400)
+    sp.add_argument("--seed", type=int, default=0)
+    _device_arg(sp)
+    ip = sub.add_parser("ismpc")
+    ip.add_argument("--out", default="runs/ismpc")
+    ip.add_argument("--ticks", type=int, default=500)
+    _device_arg(ip)
+    args = ap.parse_args(argv)
+    if args.cmd in _NOT_PORTED:
+        raise NotImplementedError(f"{args.cmd}: not yet ported to "
+                                  f"cmpc_tpu_torch (see ROADMAP.md)")
+
+    import torch
+
+    from cmpc_tpu_torch.config import resolve_device
+
+    device = resolve_device(args.device)
+    # full-f32 matmuls: the JAX package pins Precision.HIGHEST
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    {"walk": _walk, "sweep": _sweep, "ismpc": _ismpc}[args.cmd](
+        args, device)
 
 
 if __name__ == "__main__":

@@ -136,12 +136,26 @@ class Scenario(NamedTuple):
         return Scenario(*(v.repeat(n, *([1] * (v.dim() - 1))) for v in self))
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on.  The default is the card, and a
+    request for a card that is not there raises: no entry point carries on
+    on the CPU unless the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} requested but no CUDA "
+                           f"device is available (pass device='cpu' to run "
+                           f"on the CPU)")
+    return device
+
+
 def nominal_scenario(cfg: WalkConfig, mass: float = 40.05,
                      push: tuple = (0.0, 3.0, 0.0),
                      push_window: tuple = (801, 899), *,
-                     device=None, dtype=torch.float32) -> Scenario:
+                     device="cuda", dtype=torch.float32) -> Scenario:
     """The reference flat-ground walk as a batch of one: 20 steps, lateral
     3 N push for t in (800, 900) (simulation.py:195-198)."""
+    device = resolve_device(device)
+
     def f(x):
         return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype,
                                device=device)[None]
@@ -163,7 +177,7 @@ def nominal_scenario(cfg: WalkConfig, mass: float = 40.05,
 
 def payload_scenario(cfg: WalkConfig, mass: float = 40.05,
                      payload_mass: float = 2.0, onset_tick: int = 0,
-                     drop_height: float = 0.1, *, device=None,
+                     drop_height: float = 0.1, *, device="cuda",
                      dtype=torch.float32) -> Scenario:
     """The payload variant (2 kg box dropped on the arms, gains k1=7,
     k2=1; centroidal_mpc_vertices_payload.py:27-31)."""

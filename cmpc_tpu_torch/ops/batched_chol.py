@@ -12,9 +12,12 @@
 tensor it launches the hand-written Hopper kernel
 ``csrc/chol_inv_tile.cu`` (the port of the Pallas kernel
 ``_chol_inv_tile_pallas``); on a CPU tensor it runs the plain torch
-version :func:`chol_inv_tile_ref` (``_chol_tile`` + ``_tri_inv_tile``).
-Matrix products are plain ``torch.matmul``; the callers pin full-f32
-matmuls (TF32 off).
+version :func:`chol_inv_tile_ref` (``chol_tile_ref`` + ``_tri_inv_tile``).
+:func:`chol_tile` is its factor-only form, ``csrc/chol_tile.cu`` (the port
+of ``_chol_tile_pallas``) with the plain version :func:`chol_tile_ref`;
+like ``_chol_tile_dispatch`` in the JAX package it has no caller on any
+path.  Matrix products are plain ``torch.matmul``; the callers pin
+full-f32 matmuls (TF32 off).
 """
 
 from __future__ import annotations
@@ -25,8 +28,8 @@ import torch
 
 TILE = 64                      # the kernel's tile size
 
-# launches of the CUDA kernel, counted where the wrapper launches it
-LAUNCHES = {"chol_inv_tile": 0}
+# launches of each CUDA kernel, counted where its wrapper launches it
+LAUNCHES = {"chol_inv_tile": 0, "chol_tile": 0}
 
 
 def _chol_tile_loop(A):
@@ -47,12 +50,14 @@ def _chol_tile_loop(A):
     return L
 
 
-def _chol_tile(A):
-    """Cholesky of (B, nb, nb) SPD tiles with the elimination's pivot clamp
+def chol_tile_ref(A):
+    """Plain torch version of the factor-only tile kernel: Cholesky of
+    (B, nb, nb) SPD tiles with the elimination's pivot clamp
     sqrt(max(a_jj, 1e-30)).  Where every pivot exceeds the clamp the
     clamped elimination IS the Cholesky factor, so those tiles take
     torch.linalg.cholesky_ex; tiles that hit the clamp (or are not PD) take
-    the step-by-step elimination :func:`_chol_tile_loop`."""
+    the step-by-step elimination :func:`_chol_tile_loop`.  Which tiles do
+    is decided tile by tile, so no tile's factor depends on another's."""
     L, info = torch.linalg.cholesky_ex(A)
     d = torch.diagonal(L, dim1=-2, dim2=-1)
     bad = (info != 0) | ~(d > 1e-15).all(dim=-1)
@@ -83,39 +88,41 @@ def _tri_inv_tile(L):
 def chol_inv_tile_ref(A):
     """Plain torch version of the tile kernel: (L, L^-1) of (T, nb, nb) SPD
     tiles."""
-    L = _chol_tile(A)
+    L = chol_tile_ref(A)
     return L, _tri_inv_tile(L)
 
 
-def _cuda_chol_inv_tile(A):
+def _launch_tile_kernel(name: str, A, n_out: int):
+    """Check A, allocate `n_out` outputs like it and launch the kernel
+    ``<name>_f32`` / ``<name>_f64`` of ``csrc/<name>.cu`` on the current
+    stream.  Raises on what the kernel does not take and on a refused
+    launch."""
     from cmpc_tpu_torch.ops.cuda_build import load_library
 
     if A.dim() != 3 or A.shape[1:] != (TILE, TILE):
-        raise ValueError(f"chol_inv_tile kernel takes (T, {TILE}, {TILE}) "
+        raise ValueError(f"{name} kernel takes (T, {TILE}, {TILE}) "
                          f"tiles, got {tuple(A.shape)}")
     if A.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"chol_inv_tile kernel takes f32 or f64, got "
-                        f"{A.dtype}")
+        raise TypeError(f"{name} kernel takes f32 or f64, got {A.dtype}")
     if not A.is_contiguous():
-        raise ValueError("chol_inv_tile kernel takes a contiguous tensor")
-    lib = load_library("chol_inv_tile")
-    fn = lib.chol_inv_tile_f32 if A.dtype == torch.float32 \
-        else lib.chol_inv_tile_f64
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        raise ValueError(f"{name} kernel takes a contiguous tensor")
+    lib = load_library(name)
+    fn = getattr(lib, f"{name}_f32" if A.dtype == torch.float32
+                 else f"{name}_f64")
+    fn.argtypes = [ctypes.c_void_p] * (1 + n_out) \
+        + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    L = torch.empty_like(A)
-    X = torch.empty_like(A)
+    outs = tuple(torch.empty_like(A) for _ in range(n_out))
     if A.shape[0] == 0:
-        return L, X                  # nothing to launch
+        return outs                  # nothing to launch
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(A.data_ptr(), L.data_ptr(), X.data_ptr(), A.shape[0],
+        err = fn(A.data_ptr(), *(o.data_ptr() for o in outs), A.shape[0],
                  stream)
     if err != 0:
-        raise RuntimeError(f"chol_inv_tile kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["chol_inv_tile"] += 1
-    return L, X
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+    return outs
 
 
 def chol_inv_tile(A):
@@ -125,8 +132,20 @@ def chol_inv_tile(A):
     if A.device.type == "cpu":
         return chol_inv_tile_ref(A)
     if A.device.type == "cuda":
-        return _cuda_chol_inv_tile(A)
+        return _launch_tile_kernel("chol_inv_tile", A, 2)
     raise RuntimeError(f"chol_inv_tile: no kernel for device {A.device}")
+
+
+def chol_tile(A):
+    """L = chol(A) of (T, nb, nb) SPD tiles, the factor-only form of
+    :func:`chol_inv_tile` (counterpart of the JAX package's
+    ``_chol_tile_dispatch``).  CPU tensors take :func:`chol_tile_ref`; CUDA
+    tensors launch the kernel (nb == 64, f32/f64, contiguous) or raise."""
+    if A.device.type == "cpu":
+        return chol_tile_ref(A)
+    if A.device.type == "cuda":
+        return _launch_tile_kernel("chol_tile", A, 1)[0]
+    raise RuntimeError(f"chol_tile: no kernel for device {A.device}")
 
 
 def blocked_cholesky(M, nb: int = 32):

@@ -96,7 +96,7 @@ def test_f32_ill_conditioned():
 
 
 def test_tile_functions_match_jax(x64):
-    """_chol_tile (both its LAPACK fast path and the elimination loop) and
+    """chol_tile_ref (both its LAPACK fast path and the elimination loop) and
     _tri_inv_tile against the JAX scan/Neumann versions, including a
     semidefinite tile whose zero pivot hits the 1e-30 clamp."""
     rng = np.random.default_rng(5)
@@ -106,7 +106,7 @@ def test_tile_functions_match_jax(x64):
     Lj = np.asarray(jbc._chol_tile(jnp.asarray(M)))
     Xj = np.asarray(jbc._tri_inv_tile(jnp.asarray(Lj)))
     assert Lj[2, 7, 7] == pytest.approx(1e-15)
-    Lt = tbc._chol_tile(torch.tensor(M))
+    Lt = tbc.chol_tile_ref(torch.tensor(M))
     np.testing.assert_allclose(Lt.numpy(), Lj, rtol=0, atol=1e-12)
     np.testing.assert_allclose(tbc._chol_tile_loop(torch.tensor(M)).numpy(),
                                Lj, rtol=0, atol=1e-12)
@@ -130,6 +130,46 @@ def test_chol_inv_tile_ref_matches_pallas_kernel_interpret():
     assert np.all(np.triu(Xt.numpy(), 1) == 0)
 
 
+def test_chol_tile_ref_matches_pallas_kernel_interpret():
+    """The plain version of the factor-only kernel against the Pallas
+    kernel it replaces (_chol_tile_pallas, interpret mode) on the inputs of
+    test_batched_chol.py::test_pallas_tile_chol_parity_interpret: B=128
+    tiles of 64x64, f32, rtol=atol=2e-5."""
+    rng = np.random.default_rng(7)
+    B, nb = 128, 64
+    A = rng.normal(size=(B, nb, nb)).astype(np.float32) * 0.3
+    M = A @ np.swapaxes(A, 1, 2) + 5.0 * np.eye(nb, dtype=np.float32)
+    Lp = np.asarray(jbc._chol_tile_pallas(jnp.asarray(M), interpret=True))
+    Lt = tbc.chol_tile_ref(torch.tensor(M))
+    assert Lt.dtype == torch.float32
+    np.testing.assert_allclose(Lt.numpy(), Lp, rtol=2e-5, atol=2e-5)
+    assert np.all(np.triu(Lt.numpy(), 1) == 0)
+    # the fused kernel's plain version returns this very factor
+    assert torch.equal(tbc.chol_inv_tile_ref(torch.tensor(M))[0], Lt)
+
+
+def test_chol_tile_ref_matches_jax_f64(x64):
+    """Against the JAX scan factor in f64 (1e-12), and tile by tile: a
+    tile that is not positive definite takes the elimination loop without
+    changing its neighbours' factors by a bit."""
+    M = _spd(np.random.default_rng(11), 4, 64, scale=0.3, shift=5.0)
+    good = tbc.chol_tile_ref(torch.tensor(M))
+    np.testing.assert_allclose(
+        good.numpy(), np.asarray(jbc._chol_tile(jnp.asarray(M))), rtol=0,
+        atol=1e-12)
+    M[1] = -M[1]                       # every pivot of tile 1 hits the clamp
+    mixed = tbc.chol_tile_ref(torch.tensor(M))
+    np.testing.assert_allclose(
+        mixed.numpy(), np.asarray(jbc._chol_tile(jnp.asarray(M))), rtol=0,
+        atol=1e-12)
+    for k in (0, 2, 3):
+        assert torch.equal(mixed[k], good[k])
+    M[2, 5, 5] = np.nan                # NaN is passed on, within its tile
+    nan = tbc.chol_tile_ref(torch.tensor(M))
+    assert torch.isnan(nan[2]).any() and torch.isfinite(nan[[0, 3]]).all()
+    assert torch.equal(nan[0], good[0]) and torch.equal(nan[3], good[3])
+
+
 def test_wrapper_dispatch_cpu_and_refusal():
     """CPU tensors take the plain version (no launch is counted); a device
     with no kernel raises instead of falling back."""
@@ -141,4 +181,16 @@ def test_wrapper_dispatch_cpu_and_refusal():
     assert tbc.LAUNCHES["chol_inv_tile"] == n0
     with pytest.raises(RuntimeError, match="no kernel"):
         tbc.chol_inv_tile(torch.empty(2, 64, 64, device="meta"))
+
+
+def test_chol_tile_wrapper_dispatch_cpu_and_refusal():
+    """The factor-only wrapper: CPU tensors take chol_tile_ref and count no
+    launch; a device with no kernel raises instead of falling back."""
+    assert set(tbc.LAUNCHES) == {"chol_inv_tile", "chol_tile"}
+    M = torch.tensor(_spd(np.random.default_rng(8), 2, 64, dtype=np.float32))
+    n0 = dict(tbc.LAUNCHES)
+    assert torch.equal(tbc.chol_tile(M), tbc.chol_tile_ref(M))
+    assert tbc.LAUNCHES == n0
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tbc.chol_tile(torch.empty(2, 64, 64, device="meta"))
 

@@ -58,10 +58,11 @@ def test_scenarios_equal(which):
     jc, tc = jconfig.WalkConfig(), tconfig.WalkConfig()
     if which == "nominal":
         j = jconfig.nominal_scenario(jc)
-        t = tconfig.nominal_scenario(tc, dtype=torch.float32)
+        t = tconfig.nominal_scenario(tc, device="cpu", dtype=torch.float32)
     else:
         j = jconfig.payload_scenario(jc, onset_tick=120)
-        t = tconfig.payload_scenario(tc, onset_tick=120, dtype=torch.float32)
+        t = tconfig.payload_scenario(tc, onset_tick=120, device="cpu",
+                                     dtype=torch.float32)
     assert t._fields == j._fields
     for name in j._fields:
         a = np.asarray(getattr(j, name))
@@ -72,7 +73,8 @@ def test_scenarios_equal(which):
 
 
 def test_scenario_to_and_repeat():
-    sc = tconfig.nominal_scenario(tconfig.WalkConfig()).repeat(3)
+    sc = tconfig.nominal_scenario(tconfig.WalkConfig(),
+                                  device="cpu").repeat(3)
     s64 = sc.to(dtype=torch.float64)
     assert all(v.shape[0] == 3 for v in s64)
     assert s64.k1.dtype == torch.float64 and s64.vref.shape == (3, 20, 3)
@@ -117,8 +119,47 @@ def test_cli_cuda_without_card_raises(monkeypatch):
         cli.main(["walk", "--device", "cuda", "--ticks", "1"])
 
 
+@pytest.mark.parametrize("which", ["nominal", "payload"])
+def test_scenarios_default_to_the_card(which, monkeypatch):
+    """The scenario constructors start a run: their default device is the
+    card, and without one they raise instead of building on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    build = getattr(tconfig, f"{which}_scenario")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(tconfig.WalkConfig())
+
+
 @pytest.mark.parametrize("cmd", ["walk-wb", "sweep", "ismpc"])
-def test_cli_unported_commands_raise(cmd):
+def test_cli_unported_commands_raise(cmd, monkeypatch):
+    """walk-wb is not ported and says so.  sweep and ismpc are ported:
+    without --device and without a card they raise and do not run on the
+    CPU."""
     from cmpc_tpu_torch import __main__ as cli
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main([cmd])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if cmd == "walk-wb":
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            cli.main([cmd])
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([cmd, "--ticks", "1"])
+
+
+def test_cli_sweep_cpu(capsys):
+    """`sweep --device cpu` prints the JAX command's JSON keys."""
+    from cmpc_tpu_torch import __main__ as cli
+    cli.main(["sweep", "--device", "cpu", "--n", "4", "--ticks", "5"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out) == {"n", "com_rmse_xy", "max_tilt", "fall_rate",
+                        "mean_lyap_violation", "mean_r_prim", "wall_s"}
+    assert out["n"] == 4.0 and out["fall_rate"] == 0.0
+    assert all(np.isfinite(v) for v in out.values())
+
+
+def test_cli_ismpc_cpu(capsys):
+    """`ismpc --device cpu` prints the JAX command's JSON keys."""
+    from cmpc_tpu_torch import __main__ as cli
+    cli.main(["ismpc", "--device", "cpu", "--ticks", "20"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out) == {"ticks", "final_com", "zmp_span_y", "wall_s"}
+    assert out["ticks"] == 20 and len(out["final_com"]) == 3
+    assert abs(out["final_com"][2] - 0.72) < 1e-3

@@ -1,6 +1,7 @@
-"""The port on the card: the hand-written tile kernel against its plain
-version and numpy, and the main path (batched solve, closed-loop ticks)
-through the kernel against the same code on the CPU, both in f64.
+"""The port on the card: the hand-written tile kernels against their plain
+versions and numpy, and the main paths (batched solve, closed-loop ticks,
+a 256-scenario sweep) through the kernel against the same code on the CPU,
+both in f64.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports no JAX, so it also runs on a GPU machine that has none:
@@ -17,6 +18,7 @@ import torch
 from cmpc_tpu_torch.config import WalkConfig, nominal_scenario
 from cmpc_tpu_torch.ocp import assemble
 from cmpc_tpu_torch.ops import batched_chol as tbc, sqp
+from cmpc_tpu_torch.parallel import mesh as pmesh
 from cmpc_tpu_torch.plan import com_ref as crm, footsteps, timing as tm
 from cmpc_tpu_torch.sim import closed_loop
 
@@ -68,6 +70,56 @@ def test_cuda_kernel_rejects_bad_input(cuda):
         tbc.chol_inv_tile(torch.eye(32, device=cuda).repeat(2, 1, 1))
     with pytest.raises(TypeError):
         tbc.chol_inv_tile(good.contiguous().half())
+
+
+@pytest.mark.parametrize("B", [1, 7, 256])
+def test_cuda_chol_tile_matches_plain_and_fused_kernel(B, cuda):
+    """The factor-only kernel against chol_tile_ref (f32, rtol=atol=2e-5)
+    and numpy (f64, 1e-12), with exact zeros above the diagonal, and bit
+    for bit against the L of the fused kernel on the same input."""
+    M = _spd(np.random.default_rng(100 + B), B, 64)
+    for dtype in (torch.float32, torch.float64):
+        A = torch.tensor(M, dtype=dtype, device=cuda)
+        n0 = dict(tbc.LAUNCHES)
+        L = tbc.chol_tile(A)
+        assert tbc.LAUNCHES["chol_tile"] == n0["chol_tile"] + 1
+        assert tbc.LAUNCHES["chol_inv_tile"] == n0["chol_inv_tile"]
+        assert torch.triu(L, 1).abs().max().item() == 0.0
+        assert torch.equal(L, tbc.chol_inv_tile(A)[0])
+        if dtype == torch.float32:
+            torch.testing.assert_close(L, tbc.chol_tile_ref(A), rtol=2e-5,
+                                       atol=2e-5)
+        else:
+            np.testing.assert_allclose(L.cpu().numpy(),
+                                       np.linalg.cholesky(M), rtol=0,
+                                       atol=1e-12)
+
+
+def test_cuda_chol_tile_clamp_and_nan(cuda):
+    """A zero pivot takes the 1e-30 clamp (sqrt: 1e-15) and a NaN is passed
+    on within its tile, as in chol_tile_ref."""
+    M = _spd(np.random.default_rng(5), 3, 64)
+    M[1, 7, :] = 0.0
+    M[1, :, 7] = 0.0
+    M[2, 5, 5] = np.nan
+    A = torch.tensor(M, device=cuda)
+    L = tbc.chol_tile(A)
+    assert L[1, 7, 7].item() == pytest.approx(1e-15)
+    assert torch.isnan(L[2]).any() and torch.isfinite(L[:2]).all()
+    Lr = tbc.chol_tile_ref(A.cpu())
+    np.testing.assert_allclose(L[:2].cpu().numpy(), Lr[:2].numpy(), rtol=0,
+                               atol=1e-12)
+    assert torch.equal(torch.isnan(L[2]).cpu(), torch.isnan(Lr[2]))
+
+
+def test_cuda_chol_tile_rejects_bad_input(cuda):
+    good = torch.eye(64, device=cuda).expand(2, 64, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbc.chol_tile(good)
+    with pytest.raises(ValueError, match="tiles"):
+        tbc.chol_tile(torch.eye(32, device=cuda).repeat(2, 1, 1))
+    with pytest.raises(TypeError):
+        tbc.chol_tile(good.contiguous().half())
 
 
 def test_cuda_spd_inverse64_matches_numpy(cuda):
@@ -137,3 +189,35 @@ def test_cuda_rollout_matches_cpu(cuda):
         np.testing.assert_allclose(getattr(res["cuda"], name).cpu().numpy(),
                                    getattr(res["cpu"], name).numpy(),
                                    rtol=0, atol=1e-8, err_msg=name)
+
+
+def test_cuda_sweep_256_matches_cpu(cuda):
+    """Five ticks of the 256-scenario make_batch sweep (seed 7) on the card
+    and on the CPU, f64: the per-scenario statistics at 1e-8, through 120
+    launches of 256 tiles per tick."""
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        sc = pmesh.make_batch(CFG, 256, seed=7, device=dev,
+                              dtype=torch.float64)
+        n0 = tbc.LAUNCHES["chol_inv_tile"]
+        out[dev.type] = pmesh.sweep_per_scenario(sc, CFG, 5)
+        launches = tbc.LAUNCHES["chol_inv_tile"] - n0
+        assert launches == (5 * 120 if dev.type == "cuda" else 0)
+    for name in out["cpu"]._fields:
+        np.testing.assert_allclose(getattr(out["cuda"], name).cpu().numpy(),
+                                   getattr(out["cpu"], name).numpy(),
+                                   rtol=0, atol=1e-8, err_msg=name)
+
+
+def test_cuda_lanes_do_not_mix(cuda):
+    """The tiny heterogeneous sweep under a permutation of the batch, f64.
+    On the CPU the scenarios' results are unchanged bit for bit
+    (test_torch_runtime.py).  On the card a row sum rounds differently with
+    the row's position in the batch: ``Tensor.sum(dim=1)`` over rows of odd
+    length (the interior-point complementarity sum, 8 x 541) — the reduce
+    kernel's vectorized loads split a row at a 16-byte boundary, which
+    falls elsewhere in each row.  Measured: 1e-13 on that sum, 8e-14
+    relative on the statistics after 4 ticks.  So the bound here is 1e-10,
+    far below what a reduction over the whole batch would leak."""
+    from cmpc_tpu_torch import entry
+    entry.dryrun_one_device(cuda, torch.float64, lane_tol=1e-10)
