@@ -8,15 +8,20 @@ line, and no phase carries on on the CPU):
   1. device check — needs torch.cuda; prints the card's name and power
      limit as nvidia-smi reports them;
   2. kernel build — compiles csrc/chol_inv_tile.cu and csrc/chol_tile.cu
-     with nvcc (sm_90a), both at once;
+     (both include csrc/chol_tile_common.cuh) with nvcc (sm_90a), both at
+     once, and reads ptxas' report, which is kept beside each library:
+     registers per kernel, no spills;
   3. kernel vs plain — the tile Cholesky+inverse kernel (chol_inv_tile)
      and the factor-only kernel (chol_tile) against their plain torch
      versions on random SPD tiles (f32 at rtol=atol=2e-5, f64 against
      numpy at 1e-12, exact zeros above the diagonal), the two kernels' L
-     against each other bit for bit, the blocked spd_inverse on an
-     ill-conditioned 320x320 case (rel < 1e-4), and at (256, 64, 64) f32
-     each kernel's time beside its plain version's and the library calls'
-     (torch.linalg.cholesky; with solve_triangular for the fused kernel);
+     against each other bit for bit, the strided in-place entry (a
+     diagonal block of a (B, 320, 320) tensor written into L and Dinv)
+     against the contiguous call bit for bit, the blocked spd_inverse on
+     an ill-conditioned 320x320 case (rel < 1e-4), and each kernel's time
+     at 1, 256, 1024 and 1280 tiles (f32) beside its bound, with its plain
+     version's and the library calls' at 256 (torch.linalg.cholesky; with
+     solve_triangular for the fused kernel);
   4. production-state solve — 256 recorded walk states
      (assets/walk_x0.npz) replayed as bench.py does: 12-solve warm chain,
      then one timed batched solve, held to bench.py's accuracy gate;
@@ -88,6 +93,20 @@ def cuda_ms(fn, reps, warmup=3):
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(fn, launches=50, reps=20):
+    """Device time of one call of `fn` (kernel launches into preallocated
+    tensors): `launches` calls captured into one CUDA graph, so that no host
+    work lies between them, replayed `reps` times."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, reps) / launches
+
+
 def random_spd_tiles(rng, B, nb=64):
     A = rng.normal(size=(B, nb, nb)) * 0.3
     return A @ np.swapaxes(A, 1, 2) + 5.0 * np.eye(nb)
@@ -96,17 +115,60 @@ def random_spd_tiles(rng, B, nb=64):
 def bound(tiles, nb, n_out, flop_per_tile):
     """(ms, "bytes" | "operations"): the least time the card could take for
     a tile kernel on (tiles, nb, nb) f32 input — the larger of its bytes
-    (the input read once, each of n_out outputs written once) over the
-    memory rate and its operations over the f32 rate."""
-    t_bytes = tiles * nb * nb * 4 * (1 + n_out) / PEAK_BYTES_PER_S
+    over the memory rate and its operations over the f32 rate.  The bytes
+    the function must move: of the symmetric input only the lower triangle,
+    nb (nb + 1) / 2 elements, read once (the factor needs no more and the
+    kernels read no more), and each of the n_out outputs written whole once
+    (the zeros above the diagonal are part of the result)."""
+    elems = nb * (nb + 1) // 2 + n_out * nb * nb
+    t_bytes = tiles * elems * 4 / PEAK_BYTES_PER_S
     t_ops = tiles * flop_per_tile / PEAK_F32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+TIMED_TILES = (1, 256, 1024, 1280)
+
+
+def check_strided_entry(bc, dev):
+    """The in-place entry on a diagonal block of a (B, 320, 320) tensor:
+    L and the tile inverse written where blocked_cholesky wants them, into
+    buffers that were not zero, equal bit for bit to the contiguous call,
+    and nothing outside the block touched."""
+    import torch
+    for dtype in (torch.float32, torch.float64):
+        B, n, r0 = 37, 320, 128
+        g = torch.Generator(device="cpu").manual_seed(11)
+        G = torch.randn(B, n, n, generator=g, dtype=torch.float64)
+        M = (G @ G.transpose(1, 2) / n
+             + 5.0 * torch.eye(n, dtype=torch.float64)).to(dev, dtype)
+        blk = M[:, r0:r0 + 64, r0:r0 + 64]
+        Lc, Xc = bc.chol_inv_tile(blk.contiguous())
+        Lbig = torch.full_like(M, 3.0)
+        Dinv = torch.full((B, n // 64, 64, 64), 3.0, dtype=dtype, device=dev)
+        L2big = torch.full_like(M, 3.0)
+        bc.chol_inv_tile_into(blk, Lbig[:, r0:r0 + 64, r0:r0 + 64],
+                              Dinv[:, r0 // 64])
+        bc.chol_tile_into(blk, L2big[:, r0:r0 + 64, r0:r0 + 64])
+        torch.cuda.synchronize()
+        if not (torch.equal(Lbig[:, r0:r0 + 64, r0:r0 + 64], Lc)
+                and torch.equal(Dinv[:, r0 // 64], Xc)
+                and torch.equal(L2big, Lbig)):
+            fail(f"strided in-place entry differs from the contiguous call "
+                 f"({dtype})")
+        Lbig[:, r0:r0 + 64, r0:r0 + 64] = 3.0
+        Dinv[:, r0 // 64] = 3.0
+        if not (bool((Lbig == 3.0).all()) and bool((Dinv == 3.0).all())):
+            fail(f"strided in-place entry wrote outside its block ({dtype})")
+    phase("  strided in-place entry (block 2 of (37,320,320) into L and "
+          "Dinv, f32 and f64): bit-identical to the contiguous call, "
+          "nothing outside the block written")
+
+
 def check_kernels(bc, dev):
     """Phase 3.  Returns per kernel a dict of max_abs_err over the f32
-    checks and the times at (256, 64, 64) f32."""
+    checks, the times at (256, 64, 64) f32 and, under "by_tiles", the
+    kernel's time and bound at each of TIMED_TILES."""
     import torch
     rng = np.random.default_rng(0)
     err1 = err2 = 0.0
@@ -163,8 +225,44 @@ def check_kernels(bc, dev):
         fail(f"spd_inverse ill-conditioned rel err {rel:.3e} >= 1e-4")
     phase(f"  spd_inverse ill-conditioned 320x320: rel err {rel:.3e}")
 
-    # times at the sweep's and the production solve's launch shape; the
-    # library calls are a yardstick only (the port never calls them)
+    check_strided_entry(bc, dev)
+
+    # Times.  "ms" is the kernel's device time at the sweep's and the
+    # production solve's launch shape, (256, 64, 64) f32: launches into
+    # preallocated outputs, captured into a CUDA graph so that the host's
+    # dispatch (which now takes longer than the kernel) lies outside the
+    # measurement; the replays launch the kernel without the wrapper, so
+    # LAUNCHES counts the captured calls only.  "eager_ms" is the public
+    # wrapper called in a loop, the way this script timed the kernels while
+    # they took longer than the host's dispatch.  The plain
+    # versions and the library calls (a yardstick only: the port never
+    # calls them) run eagerly.
+    method = ("device time of one launch into preallocated outputs: the "
+              "least of two CUDA-graph replays (20 each) of 50 captured "
+              "launches; eager_ms is the public wrapper in a host loop")
+    out = {"chol_inv_tile": {"max_abs_err": err1, "ms_method": method,
+                             "by_tiles": {}},
+           "chol_tile": {"max_abs_err": err2, "ms_method": method,
+                         "by_tiles": {}}}
+    for T in TIMED_TILES:
+        A = torch.tensor(random_spd_tiles(np.random.default_rng(1), T),
+                         dtype=torch.float32, device=dev)
+        L, X = torch.empty_like(A), torch.empty_like(A)
+        runs = (("chol_inv_tile", lambda: bc.chol_inv_tile_into(A, L, X)),
+                ("chol_tile", lambda: bc.chol_tile_into(A, L)))
+        for order in (runs, runs[::-1]):      # each twice, in turns
+            for kern, fn in order:
+                t = graph_ms(fn)
+                row = out[kern]["by_tiles"].setdefault(str(T), {})
+                row["ms"] = min(t, row.get("ms", t))
+        # nb^3/3 operations for the factor, as many again for the inverse
+        # of the triangle
+        for kern, n_out in (("chol_inv_tile", 2), ("chol_tile", 1)):
+            row = out[kern]["by_tiles"][str(T)]
+            row["bound_ms"], row["bound_by"] = bound(T, 64, n_out,
+                                                     n_out * 64 ** 3 / 3.0)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+
     M = torch.tensor(random_spd_tiles(np.random.default_rng(1), 256),
                      dtype=torch.float32, device=dev)
     eye = torch.eye(64, device=dev).expand(256, 64, 64).contiguous()
@@ -173,34 +271,42 @@ def check_kernels(bc, dev):
         return torch.linalg.solve_triangular(torch.linalg.cholesky(M), eye,
                                              upper=False)
 
-    runs = (("chol_inv_tile", "ms", lambda: bc.chol_inv_tile(M), 200),
+    runs = (("chol_inv_tile", "eager_ms", lambda: bc.chol_inv_tile(M), 200),
             ("chol_inv_tile", "plain_ms", lambda: bc.chol_inv_tile_ref(M),
              20),
             ("chol_inv_tile", "library_ms", lib_chol_inv, 50),
-            ("chol_tile", "ms", lambda: bc.chol_tile(M), 200),
+            ("chol_tile", "eager_ms", lambda: bc.chol_tile(M), 200),
             ("chol_tile", "plain_ms", lambda: bc.chol_tile_ref(M), 20),
             ("chol_tile", "library_ms", lambda: torch.linalg.cholesky(M),
              50))
-    out = {"chol_inv_tile": {"max_abs_err": err1},
-           "chol_tile": {"max_abs_err": err2}}
     for order in (runs, runs[::-1]):          # each twice, in turns
         for kern, key, fn, reps in order:
             t = cuda_ms(fn, reps)
             out[kern][key] = min(t, out[kern].get(key, t))
-    # nb^3/3 operations for the factor, as many again for the inverse of
-    # the triangle
-    for kern, n_out in (("chol_inv_tile", 2), ("chol_tile", 1)):
+    for kern in ("chol_inv_tile", "chol_tile"):
         r = out[kern]
-        r["bound_ms"], r["bound_by"] = bound(256, 64, n_out,
-                                             n_out * 64 ** 3 / 3.0)
-        phase(f"  {kern} (256,64,64) f32: kernel {r['ms']:.4f} ms, plain "
+        r.update({k: r["by_tiles"]["256"][k]
+                  for k in ("ms", "bound_ms", "bound_by")})
+        phase(f"  {kern} (256,64,64) f32: kernel {r['ms']:.4f} ms (eager "
+              f"wrapper loop {r['eager_ms']:.4f}), plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}")
+        phase("    by tiles: " + "; ".join(
+            f"T={T}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} "
+            f"({100 * row['share_of_bound']:.1f}%)"
+            for T, row in r["by_tiles"].items()))
+        if not (r["ms"] < r["library_ms"] and r["ms"] < r["plain_ms"]):
+            fail(f"{kern} is not faster than its plain version and the "
+                 f"library call")
     return out
 
 
-def production_solve(dev, bc, card):
-    """Phase 4: bench.py's replay of 256 recorded production-walk ticks."""
+def production_problem(dev):
+    """The replay of bench.py: 256 recorded production-walk ticks spread
+    over the walking phase.  Returns (cfg, rec, ticks_np, state, params_at)
+    with `state` the solver state N_WARM ticks before the timed ticks and
+    params_at(k) the MPC parameters k ticks into the warm chain (k = N_WARM:
+    the timed ticks)."""
     import torch
     from cmpc_tpu_torch.config import WalkConfig, nominal_scenario
     from cmpc_tpu_torch.ocp import assemble
@@ -230,17 +336,28 @@ def production_solve(dev, bc, card):
     ticks_np = T0 + (np.arange(B) * (T_rec - T0 - 1)) // max(B - 1, 1)
     ticks = torch.tensor(ticks_np, device=dev)
 
-    def params_at(tk):
+    def params_at(k):
+        tk = ticks - N_WARM + k
         return assemble.gather_params(tk, x0_rec[tk], refs, timing, cfg,
                                       k1, k2, mass)
 
-    t0 = time.perf_counter()
     state = sqp.init_solver_state(cfg, x0_rec[ticks - N_WARM], mass=mass)
+    return cfg, rec, ticks_np, state, params_at
+
+
+def production_solve(dev, bc, card):
+    """Phase 4: bench.py's replay of 256 recorded production-walk ticks."""
+    import torch
+    from cmpc_tpu_torch.ops import sqp
+
+    B = B_SOLVE
+    cfg, rec, ticks_np, state, params_at = production_problem(dev)
+    t0 = time.perf_counter()
     for k in range(N_WARM):
-        state, _ = sqp.solve_mpc(state, params_at(ticks - N_WARM + k), cfg)
+        state, _ = sqp.solve_mpc(state, params_at(k), cfg)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    params = params_at(ticks)
+    params = params_at(N_WARM)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     new_state, info = sqp.solve_mpc(state, params, cfg)
@@ -431,6 +548,23 @@ def main():
     phase(f"phase 2 kernel build: {len(kernels)} sources in {build_s:.2f} s ("
           + ", ".join(f"{k}.cu nvcc {cuda_build.BUILD_SECONDS[k]:.2f} s"
                       for k in kernels) + ")")
+    resources = {}
+    for k in kernels:
+        usage = cuda_build.resource_usage(k)
+        if not usage:
+            fail(f"{k}: no ptxas report beside the library, so its spills "
+                 f"cannot be checked")
+        for u in usage:
+            # the mangled name carries the element type: If = float
+            dtype = "f32" if "IfLb" in u["entry"] else "f64"
+            resources[f"{k}_{dtype}"] = {
+                "registers": u["registers"], "spill_bytes": u["spill_bytes"],
+                "stack_bytes": u["stack_bytes"]}
+            phase(f"  {k} {dtype}: {u['registers']} registers, "
+                  f"{u['spill_bytes']} bytes spilled, {u['stack_bytes']} "
+                  f"bytes stack")
+            if u["spill_bytes"] or u["stack_bytes"]:
+                fail(f"{k} {dtype} spills registers")
 
     # phase 3: kernels vs plain
     phase("phase 3 kernels vs plain")
@@ -478,9 +612,11 @@ def main():
          "replaces": "cmpc_tpu/ops/batched_chol.py:49",
          "launches": phase3_chol_tile, "on_path": False,
          "note": "no path calls it, as in the JAX package (its dispatcher "
-                 "has no caller); launches are those of phase 3",
+                 "has no caller); launches are the wrapper's calls in phase "
+                 "3, where a call captured into a CUDA graph counts once "
+                 "and the graph's replays are not counted",
          **kres["chol_tile"], "library_calls": 1}],
-        "card": smi_line, "build_s": build_s,
+        "card": smi_line, "build_s": build_s, "resources": resources,
         "solves_per_s_b256": solves_per_s,
         "walk_ticks_per_s_b1": ticks_per_s,
         "sweep_scenario_ticks_per_s_b256": sweep_rate,

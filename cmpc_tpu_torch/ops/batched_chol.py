@@ -16,13 +16,18 @@ version :func:`chol_inv_tile_ref` (``chol_tile_ref`` + ``_tri_inv_tile``).
 :func:`chol_tile` is its factor-only form, ``csrc/chol_tile.cu`` (the port
 of ``_chol_tile_pallas``) with the plain version :func:`chol_tile_ref`;
 like ``_chol_tile_dispatch`` in the JAX package it has no caller on any
-path.  Matrix products are plain ``torch.matmul``; the callers pin
+path.  Both kernels share ``csrc/chol_tile_common.cuh`` and take a row and
+a tile stride per tensor: :func:`chol_inv_tile_into` / :func:`chol_tile_into`
+hand them views, so :func:`blocked_cholesky` factors each diagonal block
+where it lies and has L and the tile inverse written into place.  Matrix
+products are plain ``torch.matmul``; the callers pin
 full-f32 matmuls (TF32 off).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -92,37 +97,83 @@ def chol_inv_tile_ref(A):
     return L, _tri_inv_tile(L)
 
 
-def _launch_tile_kernel(name: str, A, n_out: int):
-    """Check A, allocate `n_out` outputs like it and launch the kernel
-    ``<name>_f32`` / ``<name>_f64`` of ``csrc/<name>.cu`` on the current
-    stream.  Raises on what the kernel does not take and on a refused
-    launch."""
+_N_TENSORS = {"chol_inv_tile": 3, "chol_tile": 2}   # input + outputs
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(name: str, dtype: torch.dtype):
+    """The C entry point ``<name>_f32`` / ``<name>_f64`` of
+    ``csrc/<name>.cu``, built on first use and bound once: per tensor a
+    pointer, a row stride and a tile stride, then the tile count and the
+    stream."""
     from cmpc_tpu_torch.ops.cuda_build import load_library
 
-    if A.dim() != 3 or A.shape[1:] != (TILE, TILE):
-        raise ValueError(f"{name} kernel takes (T, {TILE}, {TILE}) "
-                         f"tiles, got {tuple(A.shape)}")
-    if A.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{name} kernel takes f32 or f64, got {A.dtype}")
-    if not A.is_contiguous():
-        raise ValueError(f"{name} kernel takes a contiguous tensor")
-    lib = load_library(name)
-    fn = getattr(lib, f"{name}_f32" if A.dtype == torch.float32
-                 else f"{name}_f64")
-    fn.argtypes = [ctypes.c_void_p] * (1 + n_out) \
+    fn = getattr(load_library(name),
+                 f"{name}_f32" if dtype == torch.float32 else f"{name}_f64")
+    per_tensor = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+    fn.argtypes = per_tensor * _N_TENSORS[name] \
         + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    outs = tuple(torch.empty_like(A) for _ in range(n_out))
-    if A.shape[0] == 0:
-        return outs                  # nothing to launch
+    return fn
+
+
+_VEC = {torch.float32: 4, torch.float64: 2}     # elements per 16 bytes
+
+
+def _check_tiles(name: str, t, like=None):
+    """Raise unless `t` is a (T, 64, 64) f32/f64 tensor the kernel can
+    address by a row stride and a tile stride with 16-byte accesses; an
+    output (`like` is the input) must also match the input and not overlap
+    itself.  Returns the kernel's three arguments for it: pointer, row
+    stride, tile stride."""
+    shape = t.shape
+    if len(shape) != 3 or shape[1] != TILE or shape[2] != TILE:
+        raise ValueError(f"{name} kernel takes (T, {TILE}, {TILE}) "
+                         f"tiles, got {tuple(shape)}")
+    vec = _VEC.get(t.dtype)
+    if vec is None:
+        raise TypeError(f"{name} kernel takes f32 or f64, got {t.dtype}")
+    s_tile, s_row, s_col = t.stride()
+    ptr = t.data_ptr()
+    if (s_col != 1 or s_row % vec or s_tile % vec or ptr % 16
+            or s_row < TILE or s_tile < 0):
+        raise ValueError(f"{name} kernel takes tiles with contiguous, "
+                         f"16-byte aligned rows, got strides {t.stride()}")
+    if like is not None:
+        if (shape != like.shape or t.dtype != like.dtype
+                or t.device != like.device):
+            raise ValueError(f"{name}: output {tuple(shape)} {t.dtype} on "
+                             f"{t.device} does not match the input")
+        if shape[0] > 1 and s_tile < TILE * s_row:
+            raise ValueError(f"{name}: output tiles overlap, strides "
+                             f"{t.stride()}")
+    return ptr, s_row, s_tile
+
+
+def _launch_tile_kernel(name: str, A, outs):
+    """Launch the kernel `name` on the current stream: tiles A (T, 64, 64)
+    into the outputs, each read or written where it lies (any row and tile
+    stride).  Raises on what the kernel does not take and on a refused
+    launch."""
+    args = _check_tiles(name, A)
+    for o in outs:
+        args += _check_tiles(name, o, like=A)
+    tiles = A.shape[0]
+    if tiles == 0:
+        return                       # nothing to launch
+    fn = _kernel_fn(name, A.dtype)
     with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(A.data_ptr(), *(o.data_ptr() for o in outs), A.shape[0],
-                 stream)
+        err = fn(*args, tiles, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
-    return outs
+
+
+def _require_contiguous(name: str, A):
+    """The public wrappers allocate outputs like A, so they take it whole
+    and contiguous (views go through the ``*_into`` forms)."""
+    if not A.is_contiguous():
+        raise ValueError(f"{name} kernel takes a contiguous tensor")
 
 
 def chol_inv_tile(A):
@@ -132,8 +183,27 @@ def chol_inv_tile(A):
     if A.device.type == "cpu":
         return chol_inv_tile_ref(A)
     if A.device.type == "cuda":
-        return _launch_tile_kernel("chol_inv_tile", A, 2)
+        _require_contiguous("chol_inv_tile", A)
+        L, X = torch.empty_like(A), torch.empty_like(A)
+        _launch_tile_kernel("chol_inv_tile", A, (L, X))
+        return L, X
     raise RuntimeError(f"chol_inv_tile: no kernel for device {A.device}")
+
+
+def chol_inv_tile_into(A, L, X):
+    """:func:`chol_inv_tile` written in place: the tiles A (T, nb, nb) may
+    be a view (a diagonal block of a larger matrix), and L and X are views
+    that receive the factor and its inverse whole, zeros above the diagonal
+    included.  On CUDA the kernel reads and writes all three where they lie
+    (no copy); on the CPU the plain version's results are copied in."""
+    if A.device.type == "cpu":
+        Lk, Xk = chol_inv_tile_ref(A.contiguous())
+        L.copy_(Lk)
+        X.copy_(Xk)
+    elif A.device.type == "cuda":
+        _launch_tile_kernel("chol_inv_tile", A, (L, X))
+    else:
+        raise RuntimeError(f"chol_inv_tile: no kernel for device {A.device}")
 
 
 def chol_tile(A):
@@ -144,31 +214,45 @@ def chol_tile(A):
     if A.device.type == "cpu":
         return chol_tile_ref(A)
     if A.device.type == "cuda":
-        return _launch_tile_kernel("chol_tile", A, 1)[0]
+        _require_contiguous("chol_tile", A)
+        L = torch.empty_like(A)
+        _launch_tile_kernel("chol_tile", A, (L,))
+        return L
     raise RuntimeError(f"chol_tile: no kernel for device {A.device}")
+
+
+def chol_tile_into(A, L):
+    """:func:`chol_tile` written in place, as :func:`chol_inv_tile_into`."""
+    if A.device.type == "cpu":
+        L.copy_(chol_tile_ref(A.contiguous()))
+    elif A.device.type == "cuda":
+        _launch_tile_kernel("chol_tile", A, (L,))
+    else:
+        raise RuntimeError(f"chol_tile: no kernel for device {A.device}")
 
 
 def blocked_cholesky(M, nb: int = 32):
     """Batched lower Cholesky of (B, n, n) SPD matrices, n % nb == 0.
 
     Returns (L, Dinv) with Dinv (B, K, nb, nb) the inverses of L's diagonal
-    blocks."""
+    blocks.  Each diagonal block is factored and inverted where it lies:
+    the tile step reads the block of M (or the updated block) and writes
+    straight into L and Dinv."""
     B, n, _ = M.shape
     if n % nb:
         raise ValueError(f"blocked_cholesky: n={n} is not a multiple of "
                          f"nb={nb}")
     K = n // nb
     L = torch.zeros_like(M)
-    Dinv = M.new_zeros(B, K, nb, nb)
+    Dinv = M.new_empty(B, K, nb, nb)     # every block is written whole
     for k in range(K):
         r0 = k * nb
         Lrow = L[:, r0:r0 + nb, :r0]
         Akk = M[:, r0:r0 + nb, r0:r0 + nb]
         if k:
             Akk = Akk - Lrow @ Lrow.transpose(-1, -2)
-        Lkk, Dk = chol_inv_tile(Akk.contiguous())
-        L[:, r0:r0 + nb, r0:r0 + nb] = Lkk
-        Dinv[:, k] = Dk
+        Dk = Dinv[:, k]
+        chol_inv_tile_into(Akk, L[:, r0:r0 + nb, r0:r0 + nb], Dk)
         if k + 1 < K:
             Ak = M[:, r0 + nb:, r0:r0 + nb]
             if k:

@@ -194,3 +194,132 @@ def test_chol_tile_wrapper_dispatch_cpu_and_refusal():
     with pytest.raises(RuntimeError, match="no kernel"):
         tbc.chol_tile(torch.empty(2, 64, 64, device="meta"))
 
+
+
+def _blocked_cholesky_by_copies(M, nb):
+    """The blocked factorization written with the plain tile function and
+    slice copies only (contiguous block in, results assigned): what the
+    CPU path of blocked_cholesky must go on computing."""
+    B, n, _ = M.shape
+    K = n // nb
+    L = torch.zeros_like(M)
+    Dinv = M.new_zeros(B, K, nb, nb)
+    for k in range(K):
+        r0 = k * nb
+        Lrow = L[:, r0:r0 + nb, :r0]
+        Akk = M[:, r0:r0 + nb, r0:r0 + nb]
+        if k:
+            Akk = Akk - Lrow @ Lrow.transpose(-1, -2)
+        Lkk, Dk = tbc.chol_inv_tile_ref(Akk.contiguous())
+        L[:, r0:r0 + nb, r0:r0 + nb] = Lkk
+        Dinv[:, k] = Dk
+        if k + 1 < K:
+            Ak = M[:, r0 + nb:, r0:r0 + nb]
+            if k:
+                Ak = Ak - L[:, r0 + nb:, :r0] @ Lrow.transpose(-1, -2)
+            L[:, r0 + nb:, r0:r0 + nb] = Ak @ Dk.transpose(-1, -2)
+    return L, Dinv
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n", [320, 331])
+def test_blocked_cholesky_in_place_equals_copying_path(n, dtype):
+    """blocked_cholesky hands the tile step views of M, L and Dinv; on the
+    CPU that must give the very numbers of the copying formulation, bit for
+    bit ((320, 64), and 331 padded to 384 as spd_inverse64 pads it)."""
+    M = _spd(np.random.default_rng(21), 2, n, shift=5.0, dtype=dtype)
+    npad = (-n) % 64
+    Mp = np.zeros((2, n + npad, n + npad), dtype)
+    Mp[:, :n, :n] = M
+    Mp[:, n:, n:] = np.eye(npad, dtype=dtype)
+    L, Dinv = tbc.blocked_cholesky(torch.tensor(Mp), 64)
+    Lr, Dr = _blocked_cholesky_by_copies(torch.tensor(Mp), 64)
+    assert torch.equal(L, Lr) and torch.equal(Dinv, Dr)
+    assert np.all(np.triu(L.numpy(), 1) == 0)
+    inv = tbc.spd_inverse64(torch.tensor(M))
+    Xr = tbc.tri_inv_blocksub(Lr, Dr)
+    assert torch.equal(inv, (Xr.transpose(-1, -2) @ Xr)[:, :n, :n])
+
+
+@pytest.mark.parametrize("n", [320, 331])
+def test_spd_inverse64_matches_jax(n, x64):
+    """The interior-point Newton inverse against the JAX package's, f64 at
+    1e-12: the (320, 64) production shape and the padded 331 case."""
+    M = _spd(np.random.default_rng(22), 2, n, shift=5.0)
+    inv_j = np.asarray(jbc.spd_inverse64(jnp.asarray(M)))
+    Lj, Dj = jbc.blocked_cholesky(jnp.asarray(M[:, :320, :320]), 64)
+    inv_t = tbc.spd_inverse64(torch.tensor(M)).numpy()
+    Lt, Dt = tbc.blocked_cholesky(torch.tensor(M[:, :320, :320]), 64)
+    np.testing.assert_allclose(inv_t, inv_j, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(inv_t, np.linalg.inv(M), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(Lt.numpy(), np.asarray(Lj), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(Dt.numpy(), np.asarray(Dj), rtol=0,
+                               atol=1e-12)
+
+
+def test_tile_into_forms_write_views_in_place():
+    """chol_inv_tile_into / chol_tile_into on the CPU: a diagonal block of a
+    larger matrix in, the results written whole into views of buffers that
+    were not zero — the block and nothing outside it — equal to the plain
+    versions, and no launch counted."""
+    M = torch.tensor(_spd(np.random.default_rng(23), 3, 320, shift=5.0))
+    blk = M[:, 128:192, 128:192]
+    Lr, Xr = tbc.chol_inv_tile_ref(blk.contiguous())
+    n0 = dict(tbc.LAUNCHES)
+    Lbig = torch.full_like(M, 3.0)
+    Dinv = torch.full((3, 5, 64, 64), 3.0, dtype=M.dtype)
+    tbc.chol_inv_tile_into(blk, Lbig[:, 128:192, 128:192], Dinv[:, 2])
+    assert torch.equal(Lbig[:, 128:192, 128:192], Lr)
+    assert torch.equal(Dinv[:, 2], Xr)
+    assert torch.triu(Lbig[:, 128:192, 128:192], 1).abs().max() == 0
+    assert torch.triu(Dinv[:, 2], 1).abs().max() == 0
+    L2 = torch.full_like(M, 3.0)
+    tbc.chol_tile_into(blk, L2[:, 128:192, 128:192])
+    assert torch.equal(L2, Lbig)
+    Lbig[:, 128:192, 128:192] = 3.0
+    assert (Lbig == 3.0).all() and (Dinv[:, [0, 1, 3, 4]] == 3.0).all()
+    assert tbc.LAUNCHES == n0
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tbc.chol_inv_tile_into(*(torch.empty(2, 64, 64, device="meta")
+                                 for _ in range(3)))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tbc.chol_tile_into(*(torch.empty(2, 64, 64, device="meta")
+                             for _ in range(2)))
+
+
+def test_kernel_argument_checks():
+    """What the CUDA launcher refuses before it launches (the checks read
+    shapes, types and strides only, so they run on CPU tensors): wrong tile
+    shape, wrong type, rows that are not contiguous or not 16-byte aligned,
+    outputs that do not match the input or overlap themselves."""
+    M = torch.zeros(4, 320, 320)
+    blk = M[:, 64:128, 64:128]
+    tbc._check_tiles("chol_inv_tile", blk)               # the path's view
+    tbc._check_tiles("chol_inv_tile", blk, like=torch.zeros(4, 64, 64))
+    tbc._check_tiles("chol_inv_tile", torch.zeros(4, 5, 64, 64)[:, 3],
+                     like=blk)
+    with pytest.raises(ValueError, match="tiles"):
+        tbc._check_tiles("chol_inv_tile", M[:, :32, :32])
+    with pytest.raises(TypeError):
+        tbc._check_tiles("chol_inv_tile", blk.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tbc._check_tiles("chol_inv_tile", blk.transpose(1, 2))
+    with pytest.raises(ValueError, match="aligned"):     # rows of 321
+        tbc._check_tiles("chol_inv_tile",
+                         torch.zeros(4, 321, 321)[:, :64, :64])
+    with pytest.raises(ValueError, match="aligned"):     # starts at col 2
+        tbc._check_tiles("chol_inv_tile", M[:, 64:128, 2:66])
+    with pytest.raises(ValueError, match="aligned"):     # f64: 16 B = 2
+        tbc._check_tiles("chol_inv_tile",
+                         torch.zeros(4, 320, 320,
+                                     dtype=torch.float64)[:, :64, 1:65])
+    with pytest.raises(ValueError, match="match"):
+        tbc._check_tiles("chol_inv_tile", torch.zeros(3, 64, 64), like=blk)
+    with pytest.raises(ValueError, match="match"):
+        tbc._check_tiles("chol_inv_tile",
+                         torch.zeros(4, 64, 64, dtype=torch.float64),
+                         like=blk)
+    with pytest.raises(ValueError, match="overlap"):
+        tbc._check_tiles("chol_inv_tile",
+                         torch.zeros(64, 64).expand(4, 64, 64), like=blk)

@@ -122,6 +122,101 @@ def test_cuda_chol_tile_rejects_bad_input(cuda):
         tbc.chol_tile(good.contiguous().half())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_tile_into_strided_in_place(dtype, cuda):
+    """The in-place entry as blocked_cholesky uses it: a diagonal block of a
+    (B, 320, 320) tensor in, L written into the same block of another and
+    the inverse into Dinv[:, k], bit for bit what the contiguous call
+    returns, one launch each, nothing outside the block written."""
+    M = torch.tensor(_spd(np.random.default_rng(31), 5, 320, scale=0.1),
+                     dtype=dtype, device=cuda)
+    for k in (0, 2, 4):
+        r0 = 64 * k
+        blk = M[:, r0:r0 + 64, r0:r0 + 64]
+        Lc, Xc = tbc.chol_inv_tile(blk.contiguous())
+        Lbig = torch.full_like(M, 3.0)
+        Dinv = torch.full((5, 5, 64, 64), 3.0, dtype=dtype, device=cuda)
+        L2big = torch.full_like(M, 3.0)
+        n0 = dict(tbc.LAUNCHES)
+        tbc.chol_inv_tile_into(blk, Lbig[:, r0:r0 + 64, r0:r0 + 64],
+                               Dinv[:, k])
+        tbc.chol_tile_into(blk, L2big[:, r0:r0 + 64, r0:r0 + 64])
+        assert tbc.LAUNCHES["chol_inv_tile"] == n0["chol_inv_tile"] + 1
+        assert tbc.LAUNCHES["chol_tile"] == n0["chol_tile"] + 1
+        assert torch.equal(Lbig[:, r0:r0 + 64, r0:r0 + 64], Lc)
+        assert torch.equal(Dinv[:, k], Xc)
+        assert torch.equal(L2big, Lbig)
+        Lbig[:, r0:r0 + 64, r0:r0 + 64] = 3.0
+        Dinv[:, k] = 3.0
+        assert (Lbig == 3.0).all() and (Dinv == 3.0).all()
+
+
+def test_cuda_blocked_cholesky_launches_no_copies(cuda):
+    """blocked_cholesky on the card: 5 launches for a 320x320 matrix, and
+    the factor and the tile inverses of the CPU run of the same code
+    (f64, 1e-12)."""
+    M = _spd(np.random.default_rng(32), 3, 320, scale=0.1)
+    n0 = tbc.LAUNCHES["chol_inv_tile"]
+    L, Dinv = tbc.blocked_cholesky(torch.tensor(M, device=cuda), 64)
+    assert tbc.LAUNCHES["chol_inv_tile"] == n0 + 5
+    Lc, Dc = tbc.blocked_cholesky(torch.tensor(M), 64)
+    np.testing.assert_allclose(L.cpu().numpy(), Lc.numpy(), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(Dinv.cpu().numpy(), Dc.numpy(), rtol=0,
+                               atol=1e-12)
+    assert torch.triu(L, 1).abs().max().item() == 0.0
+
+
+def test_cuda_kernels_at_1024_tiles(cuda):
+    """1024 tiles (several to an SM): both kernels against the plain
+    version (f32, rtol=atol=2e-5) and each other (bit for bit)."""
+    M = _spd(np.random.default_rng(33), 1024, 64)
+    A = torch.tensor(M, dtype=torch.float32, device=cuda)
+    L, X = tbc.chol_inv_tile(A)
+    Lr, Xr = tbc.chol_inv_tile_ref(A)
+    torch.testing.assert_close(L, Lr, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(X, Xr, rtol=2e-5, atol=2e-5)
+    assert torch.equal(tbc.chol_tile(A), L)
+    assert torch.triu(L, 1).abs().max().item() == 0.0
+    assert torch.triu(X, 1).abs().max().item() == 0.0
+    A64 = torch.tensor(M, device=cuda)
+    L64, X64 = tbc.chol_inv_tile(A64)
+    Lnp = np.linalg.cholesky(M)
+    np.testing.assert_allclose(L64.cpu().numpy(), Lnp, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(X64.cpu().numpy(), np.linalg.inv(Lnp),
+                               rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_outputs_overwrite_whatever_was_there(dtype, cuda):
+    """The kernels write their outputs whole: into buffers full of NaN the
+    block comes out with exact zeros above the diagonal and no NaN."""
+    A = torch.tensor(_spd(np.random.default_rng(34), 9, 64), dtype=dtype,
+                     device=cuda)
+    L = torch.full_like(A, float("nan"))
+    X = torch.full_like(A, float("nan"))
+    L2 = torch.full_like(A, float("nan"))
+    tbc.chol_inv_tile_into(A, L, X)
+    tbc.chol_tile_into(A, L2)
+    for out in (L, X, L2):
+        assert torch.isfinite(out).all()
+        assert torch.triu(out, 1).abs().max().item() == 0.0
+    assert torch.equal(L2, L)
+    Lr, Xr = tbc.chol_inv_tile(A)
+    assert torch.equal(L, Lr) and torch.equal(X, Xr)
+
+
+def test_cuda_tile_into_rejects_what_the_kernel_cannot_address(cuda):
+    M = torch.zeros(2, 321, 321, device=cuda)
+    good = torch.zeros(2, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        tbc.chol_inv_tile_into(M[:, :64, :64], good, good.clone())
+    with pytest.raises(ValueError, match="match"):
+        tbc.chol_inv_tile_into(good, good.double(), good.clone())
+    with pytest.raises(ValueError, match="overlap"):
+        tbc.chol_tile_into(good, good[:1].expand(2, 64, 64))
+
+
 def test_cuda_spd_inverse64_matches_numpy(cuda):
     """The padded path (331 -> 384, 6 tiles) through the kernel."""
     M = _spd(np.random.default_rng(9), 4, 331, scale=0.1)
