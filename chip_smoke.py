@@ -32,11 +32,22 @@ line, and no phase carries on on the CPU):
      from tick 300, payloads from tick 0, adaptation at 261 ... 661;
   7. IS-MPC baseline — 500 ticks at B=1, held to the envelopes of
      tests/test_ismpc.py; it launches no hand-written kernel;
-  8. one JSON line of kernel results, then the final status line.
+  8. whole-body walk — 300 ticks of the nominal walk through the full
+     pipeline on HRP-4 (MPC -> ID QP on the ADMM solver -> 10 impulse-
+     contact substeps), B=1, f32, through the function `walk-wb` calls,
+     held to the envelope of tests/test_wholebody_walk.py; 120 launches of
+     chol_inv_tile per tick;
+  9. the ADMM configuration of the solve (mpc_solver="admm", block-
+     tridiagonal branch) at B=256, f32: (a) the standing double-support
+     problem of tests/test_ocp_solver.py with seeded noise, held to that
+     test's bounds per scenario; (b) the recorded states of phase 4:
+     finite, residual percentiles and ms per solve printed, not gated.  It
+     launches no hand-written kernel;
+ 10. one JSON line of kernel results, then the final status line.
 
-Each path of phases 4, 5 and 6 is driven with the kernel launch counters
-set to 0 just before it and read just after: every launch counted there
-came from that path.  The factor-only kernel has no caller on any path
+Each path of phases 4, 5, 6, 8 and 9 is driven with the kernel launch
+counters set to 0 just before it and read just after: every launch counted
+there came from that path.  The factor-only kernel has no caller on any path
 (nor has the Pallas kernel it replaces in the JAX package); its count is
 that of phase 3.  Needs no JAX and no network; uses one card.
 """
@@ -62,6 +73,8 @@ B_SOLVE = 256
 T_WALK = 500
 N_SWEEP, T_SWEEP, CHUNK_SWEEP = 256, 700, 100
 T_ISMPC = 500
+T_WB = 300
+N_ADMM_TIMED = 5
 
 # one NVIDIA H100 SXM (NVIDIA's data sheet): device memory rate and the
 # float32 rate outside the tensor cores
@@ -301,9 +314,10 @@ def check_kernels(bc, dev):
     return out
 
 
-def production_problem(dev):
+def production_problem(dev, cfg=None):
     """The replay of bench.py: 256 recorded production-walk ticks spread
-    over the walking phase.  Returns (cfg, rec, ticks_np, state, params_at)
+    over the walking phase, for WalkConfig() or the given configuration.
+    Returns (cfg, rec, ticks_np, state, params_at)
     with `state` the solver state N_WARM ticks before the timed ticks and
     params_at(k) the MPC parameters k ticks into the warm chain (k = N_WARM:
     the timed ticks)."""
@@ -313,7 +327,7 @@ def production_problem(dev):
     from cmpc_tpu_torch.ops import sqp
     from cmpc_tpu_torch.plan import com_ref as crm, footsteps, timing as tm
 
-    cfg = WalkConfig()
+    cfg = WalkConfig() if cfg is None else cfg
     timing = tm.build_timing(cfg)
     f32 = torch.float32
     sc = nominal_scenario(cfg, device=dev, dtype=f32)
@@ -514,6 +528,181 @@ def ismpc_phase(dev, card):
     return T_ISMPC / wall
 
 
+def wholebody_walk(dev, bc, card, smi_line):
+    """Phase 8: 300 whole-body ticks at B=1, f32, through the function the
+    walk-wb command calls, inside the envelope that
+    tests/test_wholebody_walk.py pins for the JAX package."""
+    import torch
+    from cmpc_tpu_torch.config import WalkConfig, nominal_scenario
+    from cmpc_tpu_torch.rbd.urdf import load_hrp4
+    from cmpc_tpu_torch.sim import wholebody_loop
+
+    def say(msg):
+        phase(f"{msg} [{smi_line}]")
+
+    cfg = WalkConfig()
+    model = load_hrp4(payload=False)
+    sc = nominal_scenario(cfg, push=(0.0, 0.0, 0.0), push_window=(0, 0),
+                          device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, tr = wholebody_loop.rollout(model, sc, cfg, T_sim=T_WB)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def row(x):
+        return x[0].cpu().numpy().astype(np.float64)
+
+    com, ref = row(tr.com_pos), row(tr.com_ref)
+    zr, zl = row(tr.pose_r)[:, 5], row(tr.pose_l)[:, 5]
+    tau, r_id = row(tr.tau), row(tr.r_prim_id)
+    if com.shape != (T_WB, 3) or tau.shape != (T_WB, model.nj):
+        fail(f"whole-body trace malformed: com {com.shape}, tau {tau.shape}")
+    for name in tr._fields:
+        if not bool(torch.isfinite(getattr(tr, name).float()).all()):
+            fail(f"whole-body trace field {name} is not finite")
+    err_xy = np.linalg.norm(com[:, :2] - ref[:, :2], axis=-1)
+    dz = np.abs(com[:, 2] - cfg.h).max()
+    apex = zr[200:270].max()
+    progress = com[-1, 0] - com[150, 0]
+    say(f"  err_xy max over ticks 0-270 {err_xy[:271].max():.4f} m (< 0.03), "
+          f"over all {err_xy.max():.4f} m (< 0.09), max|com_z - h| {dz:.4f} m "
+          f"(< 0.03)")
+    say(f"  right-sole apex over ticks 200-269 {apex:.4f} m (0.012 .. "
+          f"0.035), max|z| from tick 285 {abs(zr[285:].max()):.4f} m (< 0.01), "
+          f"left sole max over 200-269 {zl[200:270].max():.4f} m (< 0.01), "
+          f"forward progress from tick 150 {progress:.4f} m (> 0.01)")
+    say(f"  r_prim_id median {np.median(r_id):.3e} max {r_id.max():.3e}, "
+          f"r_prim_mpc median {np.median(row(tr.r_prim_mpc)):.3e}, max|tau| "
+          f"{np.abs(tau).max():.1f} N m")
+    if not (err_xy[:271].max() < 0.03 and err_xy.max() < 0.09 and dz < 0.03
+            and 0.012 < apex < 0.035 and abs(zr[285:].max()) < 0.01
+            and zl[200:270].max() < 0.01 and progress > 0.01):
+        fail("whole-body walk leaves the test_wholebody_walk envelope")
+    launches = bc.LAUNCHES["chol_inv_tile"]
+    per_solve = 5 * cfg.pdip_iters * cfg.sqp_iters
+    if launches != per_solve * T_WB:
+        fail(f"kernel launches {launches} != {per_solve} x {T_WB}")
+    say(f"  kernel launches {launches} = {per_solve} x {T_WB} ticks")
+    say(f"  {T_WB / wall:.3f} whole-body ticks/s at B=1 ({wall:.1f} s, "
+          f"{wall / T_WB * 1e3:.1f} ms per tick)")
+    return T_WB / wall
+
+
+def standing_problem(cfg, B, seed, dev):
+    """B copies of the standing double-support problem of
+    tests/test_ocp_solver.py::test_mpc_solve_standing (CoM at height h over
+    the feet at y = +-0.1, both feet in contact over the horizon), f32;
+    copy 0 exact, the others with N(0, 1e-3) noise on the CoM position and
+    velocity, drawn with numpy from `seed`."""
+    import torch
+    from cmpc_tpu_torch.models import centroidal as cm
+    from cmpc_tpu_torch.ocp.problem import MPCParams
+
+    rng = np.random.default_rng(seed)
+    N = cfg.N
+    x0 = np.zeros((B, 20))
+    x0[:, cm.P_COM] = [0.0, 0.0, cfg.h]
+    x0[:, cm.POS_L] = [0.0, 0.1, 0.0]
+    x0[:, cm.POS_R] = [0.0, -0.1, 0.0]
+    x0[1:, :6] += 1e-3 * rng.normal(size=(B - 1, 6))
+    com_ref = np.zeros((B, N, 9))
+    com_ref[:, :, 2] = cfg.h
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    return MPCParams(
+        x0=t(x0), com_ref=t(com_ref),
+        pos_ref_l=t(np.tile([0.0, 0.1, 0.0], (B, N, 1))),
+        pos_ref_r=t(np.tile([0.0, -0.1, 0.0], (B, N, 1))),
+        yaw_ref_l=t(np.zeros((B, N))), yaw_ref_r=t(np.zeros((B, N))),
+        gamma_l=t(np.ones((B, N + 1))), gamma_r=t(np.ones((B, N + 1))),
+        k1=t(np.full(B, 4.0)), k2=t(np.full(B, 0.1)),
+        mass=t(np.full(B, 40.05)))
+
+
+def admm_phase(dev, smi_line):
+    """Phase 9: solve_mpc in its ADMM configuration at B=256, f32."""
+    import torch
+    from cmpc_tpu_torch.config import WalkConfig
+    from cmpc_tpu_torch.ocp import problem
+    from cmpc_tpu_torch.ops import sqp
+
+    def say(msg):
+        phase(f"{msg} [{smi_line}]")
+
+    B = B_SOLVE
+    cfg = WalkConfig(sqp_iters=3, admm_iters=20, admm_rho=0.1,
+                     mpc_solver="admm")
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the standing problem, gated per scenario
+    p = standing_problem(cfg, B, seed=0, dev=dev)
+    state = sqp.init_solver_state(cfg, p.x0, mass=p.mass)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, info = sqp.solve_mpc(state, p, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    X, U = problem.split_z(state.z, cfg)
+    X = X.cpu().numpy().astype(np.float64)
+    U = U.cpu().numpy().astype(np.float64)
+    r_prim = info.r_prim.cpu().numpy().astype(np.float64)
+    lyap = info.lyap_violation.cpu().numpy().astype(np.float64)
+    if not (np.isfinite(X).all() and np.isfinite(U).all()
+            and np.isfinite(r_prim).all() and r_prim.shape == (B,)):
+        fail("ADMM standing solve produced non-finite values")
+    weight = 40.05 * 9.81
+    fz = U[:, 0, 0:24].reshape(B, 8, 3)[:, :, 2].sum(1)
+    f = U[:, :, 0:24].reshape(-1, 3)
+    fz_err = np.abs(fz - weight).max() / weight
+    com_xy = np.abs(X[:, :, 0:2]).max()
+    com_z = np.abs(X[:, :, 2] - cfg.h).max()
+    cone = (np.abs(f[:, :2]).max(1) - 0.5 * f[:, 2]).max()
+    say(f"  (a) standing x {B}: r_prim max {r_prim.max():.3e} (< 1e-2), "
+          f"sum fz off m g by at most {100 * fz_err:.2f}% (< 5%), max|com_xy| "
+          f"{com_xy:.4f} m max|com_z - h| {com_z:.4f} m (< 0.02), max(|f_xy| "
+          f"- mu f_z) {cone:.3f} N (<= 1), min f_z {f[:, 2].min():.3f} N "
+          f"(>= -1), lyap max {lyap.max():.3e} (< 1e-2); first solve "
+          f"{first_s * 1e3:.1f} ms")
+    if not (r_prim.max() < 1e-2 and fz_err < 0.05 and com_xy < 0.02
+            and com_z < 0.02 and cone <= 1.0 and f[:, 2].min() >= -1.0
+            and lyap.max() < 1e-2):
+        fail("ADMM standing solve leaves test_mpc_solve_standing's bounds")
+
+    # (b) the recorded production states of phase 4: printed, not gated
+    cfg, _, _, state, params_at = production_problem(dev, cfg)
+    for k in range(N_WARM):
+        state, _ = sqp.solve_mpc(state, params_at(k), cfg)
+    params = params_at(N_WARM)
+    times = []
+    for _ in range(N_ADMM_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_state, info = sqp.solve_mpc(state, params, cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    r_prim = info.r_prim.cpu().numpy().astype(np.float64)
+    lyap = info.lyap_violation.cpu().numpy().astype(np.float64)
+    if not (bool(torch.isfinite(new_state.z).all())
+            and bool(torch.isfinite(new_state.y).all())
+            and np.isfinite(r_prim).all() and np.isfinite(lyap).all()
+            and bool(torch.isfinite(info.cost).all())):
+        fail("ADMM production solve produced non-finite values")
+    ms = float(np.median(times))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"  (b) recorded states x {B} after a {N_WARM}-solve warm chain "
+          f"(not gated): r_prim p50 {np.percentile(r_prim, 50):.4e} p95 "
+          f"{np.percentile(r_prim, 95):.4e}, lyap p50 "
+          f"{np.percentile(lyap, 50):.4e}")
+    say(f"  {ms:.2f} ms per batched solve, median of "
+          + ", ".join(f"{t:.2f}" for t in times)
+          + f" ({B / ms * 1e3:.1f} solves/s at B={B}), peak device memory "
+          f"{peak_gib:.2f} GiB; no hand-written kernel on this path")
+    return ms
+
+
 def main():
     import torch
 
@@ -573,7 +762,7 @@ def main():
     kres = check_kernels(bc, dev)
     phase3_chol_tile = bc.LAUNCHES["chol_tile"]
 
-    # phases 4-6: the main paths, each counted on its own
+    # phases 4-6 and 8: the main paths, each counted on its own
     def counted(title, run):
         for k in kernels:
             bc.LAUNCHES[k] = 0
@@ -599,13 +788,26 @@ def main():
     phase("phase 7 IS-MPC baseline")
     ismpc_ticks_per_s = ismpc_phase(dev, card)
 
+    # phase 8: the whole-body walk; phase 9: the solve's ADMM configuration,
+    # which runs no hand-written kernel
+    wb_ticks_per_s, n_wb = counted(
+        "phase 8 whole-body walk",
+        lambda: wholebody_walk(dev, bc, card, smi_line))
+    for k in kernels:
+        bc.LAUNCHES[k] = 0
+    phase("phase 9 ADMM configuration of the solve")
+    admm_ms = admm_phase(dev, smi_line)
+    if any(bc.LAUNCHES[k] for k in kernels):
+        fail("phase 9: the ADMM configuration launched a tile kernel")
+
     print(json.dumps({"kernels": [
         {"name": "chol_inv_tile", "route": "cuda",
          "source": "cmpc_tpu_torch/csrc/chol_inv_tile.cu",
          "replaces": "cmpc_tpu/ops/batched_chol.py:141",
-         "launches": n_solve + n_walk + n_sweep,
+         "launches": n_solve + n_walk + n_sweep + n_wb,
          "launches_by_path": {"production_solve": n_solve,
-                              "walk": n_walk, "sweep": n_sweep},
+                              "walk": n_walk, "sweep": n_sweep,
+                              "wholebody_walk": n_wb, "admm_solve": 0},
          **kres["chol_inv_tile"], "library_calls": 2},
         {"name": "chol_tile", "route": "cuda",
          "source": "cmpc_tpu_torch/csrc/chol_tile.cu",
@@ -621,7 +823,9 @@ def main():
         "walk_ticks_per_s_b1": ticks_per_s,
         "sweep_scenario_ticks_per_s_b256": sweep_rate,
         "sweep_fall_rate": fall_rate, "sweep_rmse_survivors": rmse_alive,
-        "ismpc_ticks_per_s_b1": ismpc_ticks_per_s}), flush=True)
+        "ismpc_ticks_per_s_b1": ismpc_ticks_per_s,
+        "wholebody_ticks_per_s_b1": wb_ticks_per_s,
+        "admm_solve_ms_b256": admm_ms}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,12 +3,13 @@
   walk     the closed-loop walk on the centroidal plant -> trace + summary
            (the flat-ground walk, or --payload for the payload variant),
            batched over --batch identical scenarios.
+  walk-wb  the same scenario through the full whole-body pipeline
+           (MPC -> ID QP -> articulated impulse-contact plant) on HRP-4.
   sweep    a randomized Monte-Carlo robustness sweep on one device.
   ismpc    the legacy IS-MPC/LIP baseline closed loop.
 
 Every command takes --device (default cuda) and raises where that device
-is missing: none falls back to the CPU.  walk-wb belongs to the JAX
-package and is not ported yet.
+is missing: none falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -16,9 +17,6 @@ from __future__ import annotations
 import argparse
 import json
 import time
-
-_NOT_PORTED = ("walk-wb",)
-
 
 def _device_arg(p):
     p.add_argument("--device", default="cuda",
@@ -66,7 +64,14 @@ def _walk(args, device):
     sc = sc.repeat(args.batch)
 
     t0 = time.perf_counter()
-    _, tr = closed_loop.rollout(sc, cfg, T_sim=args.ticks)
+    if args.cmd == "walk":
+        _, tr = closed_loop.rollout(sc, cfg, T_sim=args.ticks)
+    else:
+        from cmpc_tpu_torch.rbd.urdf import load_hrp4
+        from cmpc_tpu_torch.sim import wholebody_loop
+
+        _, tr = wholebody_loop.rollout(load_hrp4(payload=False), sc, cfg,
+                                       T_sim=args.ticks)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
@@ -116,7 +121,7 @@ def _ismpc(args, device):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="cmpc_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for name in ("walk",) + _NOT_PORTED:
+    for name in ("walk", "walk-wb"):
         _walk_args(sub.add_parser(name))
     sp = sub.add_parser("sweep")
     sp.add_argument("--out", default="runs/sweep")
@@ -129,9 +134,6 @@ def main(argv=None):
     ip.add_argument("--ticks", type=int, default=500)
     _device_arg(ip)
     args = ap.parse_args(argv)
-    if args.cmd in _NOT_PORTED:
-        raise NotImplementedError(f"{args.cmd}: not yet ported to "
-                                  f"cmpc_tpu_torch (see ROADMAP.md)")
 
     import torch
 
@@ -142,7 +144,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    {"walk": _walk, "sweep": _sweep, "ismpc": _ismpc}[args.cmd](
+    {"walk": _walk, "walk-wb": _walk, "sweep": _sweep,
+     "ismpc": _ismpc}[args.cmd](
         args, device)
 
 

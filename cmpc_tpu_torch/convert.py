@@ -15,8 +15,12 @@ import torch
 from cmpc_tpu_torch.config import Scenario
 from cmpc_tpu_torch.ocp.problem import MPCParams
 from cmpc_tpu_torch.ops.sqp import SolverState
+from cmpc_tpu_torch.rbd.algorithms import RobotQ
 from cmpc_tpu_torch.sim.closed_loop import LoopCarry
 from cmpc_tpu_torch.sim.plant import PlantState
+from cmpc_tpu_torch.sim.wholebody_loop import WBLoopCarry
+from cmpc_tpu_torch.wholebody.inverse_dynamics import WBDesired
+from cmpc_tpu_torch.wholebody.plant import WBPlantState
 
 
 def to_tensor(x, device=None, dtype=torch.float64):
@@ -56,3 +60,31 @@ def loop_carry_from_numpy(d: dict, device=None,
         plan_pos=to_tensor(d["plan_pos"], device, dtype),
         theta_hat=to_tensor(d["theta_hat"], device, dtype),
         solver=solver_state_from_numpy(d["solver"], device, dtype))
+
+
+def robot_q_from_numpy(d: dict, device=None, dtype=torch.float64) -> RobotQ:
+    """Leaves (B, 3), (B, 3, 3), (B, nj)."""
+    return _build(RobotQ, d, device, dtype)
+
+
+def wb_plant_state_from_numpy(d: dict, device=None,
+                              dtype=torch.float64) -> WBPlantState:
+    """d['q'] is a dict itself."""
+    return WBPlantState(q=robot_q_from_numpy(d["q"], device, dtype),
+                        qv=to_tensor(d["qv"], device, dtype))
+
+
+def wb_desired_from_numpy(d: dict, device=None,
+                          dtype=torch.float64) -> WBDesired:
+    return _build(WBDesired, d, device, dtype)
+
+
+def wb_carry_from_numpy(d: dict, device=None,
+                        dtype=torch.float64) -> WBLoopCarry:
+    """d['plant'] (with its nested 'q') and d['solver'] are dicts
+    themselves."""
+    flat = {k: to_tensor(d[k], device, dtype) for k in WBLoopCarry._fields
+            if k not in ("plant", "solver")}
+    return WBLoopCarry(
+        plant=wb_plant_state_from_numpy(d["plant"], device, dtype),
+        solver=solver_state_from_numpy(d["solver"], device, dtype), **flat)

@@ -194,6 +194,19 @@ def cost_quadratic_parts(p: MPCParams, cfg: WalkConfig):
     return dX.reshape(B, -1), Puu, q
 
 
+def cost_quadratic(p: MPCParams, cfg: WalkConfig):
+    """Exact dense (P (B, n_z, n_z), q (B, n_z)) with
+    cost(z) = 1/2 z^T P z + q^T z + const, assembled from
+    :func:`cost_quadratic_parts` (the ADMM path consumes the dense form;
+    the condensing path uses the parts directly)."""
+    dX_diag, Puu, q = cost_quadratic_parts(p, cfg)
+    nX = dX_diag.shape[1]
+    P = q.new_zeros(q.shape[0], cfg.n_z, cfg.n_z)
+    P.diagonal(dim1=1, dim2=2)[:, :nX] = dX_diag
+    P[:, nX:, nX:] = Puu
+    return P, q
+
+
 # ---------------------------------------------------------------------------
 # constraints
 # ---------------------------------------------------------------------------
@@ -385,6 +398,100 @@ def linearize_parts(z, p: MPCParams, cfg: WalkConfig) -> LinearizeParts:
     return LinearizeParts(c=c, A_blk=A_blk, B_blk=B_blk, gx=gx, gxn=gxn,
                           gu=gu, hw0=-2.0 * X[:, 0, cm.H_W],
                           hw1=2.0 * X[:, 1, cm.H_W])
+
+
+@functools.lru_cache(maxsize=8)
+def _jacobian_index(N: int) -> dict:
+    """Static (row, column) index arrays of the dense constraint Jacobian's
+    blocks, by row family."""
+    nX = cm.N_X * (N + 1)
+    n_eq = 20 * (N + 1)
+    st = np.arange(N)
+    idx = {}
+    rows_dyn = 20 + 20 * st[:, None] + np.arange(20)[None, :]      # (N,20)
+    idx["dyn_x"] = (rows_dyn[:, :, None],
+                    (20 * st)[:, None, None] + np.arange(20)[None, None])
+    idx["dyn_u"] = (rows_dyn[:, :, None],
+                    (nX + 32 * st)[:, None, None] + np.arange(32)[None, None])
+    rows_ly = (n_eq + st)[:, None]
+    idx["ly_x"] = (rows_ly, (20 * st)[:, None] + np.arange(20)[None])
+    idx["ly_xn"] = (rows_ly, (20 * (st + 1))[:, None] + np.arange(20)[None])
+    idx["ly_u"] = (rows_ly, (nX + 32 * st)[:, None] + np.arange(32)[None])
+    idx["height"] = (n_eq + N + 1 + st, 20 * st + 2)
+    f0 = n_eq + 2 * N + 1
+    i_, v_ = st[:, None, None, None], np.arange(4)[None, :, None, None]
+    k_, c_ = np.arange(4)[None, None, :, None], np.arange(3)[None, None, None]
+    rows_fr = np.broadcast_to(f0 + 16 * i_ + 4 * v_ + k_, (N, 4, 4, 3))
+    cols_l = np.broadcast_to(nX + 32 * i_ + 3 * v_ + c_, (N, 4, 4, 3))
+    idx["fric_l"] = (rows_fr, cols_l)
+    idx["fric_r"] = (rows_fr + 16 * N, cols_l + 12)
+    z0 = f0 + 32 * N
+    rows_fz = z0 + 4 * st[:, None] + np.arange(4)[None]
+    cols_fz = nX + 32 * st[:, None] + 3 * np.arange(4)[None] + 2
+    idx["fz_l"] = (rows_fz, cols_fz)
+    idx["fz_r"] = (rows_fz + 4 * N, cols_fz + 12)
+    b0 = z0 + 8 * N
+    rows_bx = b0 + 3 * st[:, None] + np.arange(3)[None]
+    cols_bl = 20 * (st + 1)[:, None] + 13 + np.arange(3)[None]
+    idx["box_l"] = (rows_bx, cols_bl)
+    idx["box_r"] = (rows_bx + 3 * N, cols_bl + 4)
+    return {k: tuple(np.ascontiguousarray(a, dtype=np.int64) for a in v)
+            for k, v in idx.items()}
+
+
+def linearize(z, p: MPCParams, cfg: WalkConfig):
+    """(c(z) (B, m), J(z) (B, m, n_z)): the dense constraint Jacobian
+    assembled per block from :func:`linearize_parts` — per-stage Jacobians
+    for the dynamics rows, per-stage gradients for the Lyapunov rows, and
+    closed-form entries for everything else (the friction/fz/box/height
+    rows are linear with gamma-scaled constant coefficients)."""
+    N = cfg.N
+    B = z.shape[0]
+    m = num_constraints(cfg)
+    n_eq = 20 * (N + 1)
+    gl, gr = p.gamma_l, p.gamma_r
+    parts = linearize_parts(z, p, cfg)
+    index = _jacobian_index(N)
+
+    def at(name):
+        return tuple(const(("jac_idx", N, name, k), lambda: a, z.device)
+                     for k, a in enumerate(index[name]))
+
+    J = z.new_zeros(B, m, cfg.n_z)
+    # init rows: I on X0; dynamics rows X[i+1] - f(X[i], U[i]):
+    # [+I | -A_i | -B_i]
+    J[:, :n_eq, :n_eq].diagonal(dim1=1, dim2=2).fill_(1.0)
+    r, c = at("dyn_x")
+    J[:, r, c] = -parts.A_blk
+    r, c = at("dyn_u")
+    J[:, r, c] = -parts.B_blk
+    # Lyapunov rows: gradient per stage wrt (x_i, x_{i+1}, u_i); x_i and
+    # x_{i+1} never share a column
+    for name, g in (("ly_x", parts.gx), ("ly_xn", parts.gxn),
+                    ("ly_u", parts.gu)):
+        r, c = at(name)
+        J[:, r, c] = g
+    # momentum row: |hw1|^2 - |hw0|^2
+    J[:, n_eq + N, 6:9] = parts.hw0
+    J[:, n_eq + N, 26:29] = parts.hw1
+    # height rows: X[i][2], i = 0..N-1
+    r, c = at("height")
+    J[:, r, c] = 1.0
+    # friction rows: A_mu on stage forces, gamma-gated
+    Amu = const(("friction", cfg.mu), lambda: _friction_matrix(cfg.mu),
+                z.device, z.dtype)
+    for name, g in (("fric_l", gl), ("fric_r", gr)):
+        r, c = at(name)
+        J[:, r, c] = Amu * g[:, :N, None, None, None]
+    # fz rows: -gamma on vertical force comps
+    for name, g in (("fz_l", gl), ("fz_r", gr)):
+        r, c = at(name)
+        J[:, r, c] = -g[:, :N, None].expand(B, N, 4)
+    # stance box rows: gamma at X[i+1] foot-position cols
+    for name, g in (("box_l", gl), ("box_r", gr)):
+        r, c = at(name)
+        J[:, r, c] = g[:, 1:, None].expand(B, N, 3)
+    return parts.c, J
 
 
 @functools.lru_cache(maxsize=8)

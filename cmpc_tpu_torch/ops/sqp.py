@@ -1,10 +1,16 @@
-"""SQP (real-time-iteration) MPC solve, batched (port of the condensed
-interior-point path of ``cmpc_tpu.ops.sqp``).
+"""SQP (real-time-iteration) MPC solve, batched (port of
+``cmpc_tpu.ops.sqp``), in its two configurations:
 
-Each of ``cfg.sqp_iters`` iterations condenses the subproblem at the
-current rollout (ocp/condense.py), solves it with the interior-point
-kernel (ops/pdip.py), and picks the step length per scenario by a merit
-line search over the nonlinear rollout; alpha = 0 is always a candidate.
+* ``condip`` — each of ``cfg.sqp_iters`` iterations condenses the
+  subproblem at the current rollout (ocp/condense.py), solves it with the
+  interior-point kernel (ops/pdip.py), and picks the step length per
+  scenario by a merit line search over the nonlinear rollout;
+* ``admm`` — SQP over the full [X, U] stack: the constraints are
+  linearized densely (ocp/problem.linearize) and each convex QP goes to
+  the ADMM + active-set solver (ops/admm.py), by default on the
+  block-tridiagonal stage structure (ops/blocktri.py).
+
+alpha = 0 is always a candidate step in both.
 """
 
 from __future__ import annotations
@@ -17,10 +23,14 @@ from cmpc_tpu_torch.config import WalkConfig
 from cmpc_tpu_torch.consts import const
 from cmpc_tpu_torch.models import centroidal as cm
 from cmpc_tpu_torch.ocp import condense, problem
+from cmpc_tpu_torch.ops import blocktri
+from cmpc_tpu_torch.ops.admm import ADMMSettings, admm_solve
 from cmpc_tpu_torch.ops.pdip import PDIPSettings, pdip_solve
 
 LAM_CAP = 1e4
 ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.0)
+ALPHAS_ADMM = (1.0, 0.5, 0.25, 0.0)
+W_ELASTIC_ADMM = 1e4
 
 
 class SolverState(NamedTuple):
@@ -122,8 +132,7 @@ def solve_mpc(state: SolverState, params: problem.MPCParams,
     if cfg.mpc_solver == "condip":
         return _solve_mpc_condip(state, params, cfg)
     if cfg.mpc_solver == "admm":
-        raise NotImplementedError(
-            "mpc_solver='admm' is not ported yet (ROADMAP.md §1.12)")
+        return _solve_mpc_admm(state, params, cfg)
     raise ValueError(f"unknown mpc_solver {cfg.mpc_solver!r}")
 
 
@@ -133,10 +142,7 @@ def _solve_mpc_condip(state: SolverState, params: problem.MPCParams,
     nU = 32 * N
     B = params.x0.shape[0]
     dt, dev = params.x0.dtype, params.x0.device
-    l_c = const(("bounds_l", cfg), lambda: problem.constraint_bounds(cfg)[0],
-                dev, dt)
-    u_c = const(("bounds_u", cfg), lambda: problem.constraint_bounds(cfg)[1],
-                dev, dt)
+    l_c, u_c = _bounds(cfg, dev, dt)
     n_eq = 20 * (N + 1)
 
     # proximal weights over dU: foot-velocity / yaw-rate inputs exempt
@@ -208,4 +214,128 @@ def _solve_mpc_condip(state: SolverState, params: problem.MPCParams,
     )
     y = state.y.clone()
     y[:, n_eq:n_eq + ns] = lam_soft
+    return SolverState(z=z, y=y), info
+
+
+def _bounds(cfg: WalkConfig, dev, dt):
+    l_c = const(("bounds_l", cfg), lambda: problem.constraint_bounds(cfg)[0],
+                dev, dt)
+    u_c = const(("bounds_u", cfg), lambda: problem.constraint_bounds(cfg)[1],
+                dev, dt)
+    return l_c, u_c
+
+
+def _solve_mpc_admm(state: SolverState, params: problem.MPCParams,
+                    cfg: WalkConfig):
+    """SQP over the full [X, U] stack with the ADMM + PDAS inner QP."""
+    N = cfg.N
+    B = params.x0.shape[0]
+    dt, dev = params.x0.dtype, params.x0.device
+    l_c, u_c = _bounds(cfg, dev, dt)
+    P, q = problem.cost_quadratic(params, cfg)
+    settings = ADMMSettings(iters=cfg.admm_iters, rho=cfg.admm_rho,
+                            sigma=cfg.admm_sigma, alpha=cfg.admm_alpha,
+                            kkt_form=cfg.admm_kkt_form)
+
+    U_ws = prep_warmstart(state, params, cfg)
+    X_ws = _rollout_X(params.x0, U_ws, params, cfg)
+    z = problem.join_z(X_ws, U_ws)
+    y = state.y
+
+    nA = len(ALPHAS_ADMM)
+    alphas = z.new_tensor(ALPHAS_ADMM)[:, None, None]
+    params_rep = problem.MPCParams(*(
+        f.repeat(nA, *([1] * (f.dim() - 1))) for f in params))
+
+    def merit(zz):
+        """L1 exact-penalty merit on the *nonlinear* constraints of the
+        nA * B candidates (alpha-major).  Full-step SQP oscillates on this
+        problem (bilinear momentum dynamics + indefinite Lyapunov rows); a
+        3-point backtracking pick is enough to globalize it."""
+        c = problem.constraints(zz, params_rep, cfg)
+        viol = ((c - u_c).clamp_min(0.0) + (l_c - c).clamp_min(0.0)).sum(1)
+        return problem.cost_value(zz, params_rep, cfg) + 1e4 * viol
+
+    # Elastic (slack-relaxed) subproblem structure: the linearized
+    # Lyapunov rows can be INFEASIBLE jointly with the proximal trust
+    # region even when the nonlinear problem is feasible; elastic mode
+    # (Gill et al.) relaxes them as lyap_i - s_i <= 0 with s_i >= 0 and an
+    # exact linear penalty on s, solved in the same QP.
+    n_eq = 20 * (N + 1)
+    n_z = cfg.n_z
+    m0 = problem.num_constraints(cfg)
+    # stage-structured linear solves (elastic mode changes the variable
+    # layout, so it stays on the dense path)
+    ocp_perm = None
+    if cfg.mpc_blocktri and not cfg.sqp_elastic and not cfg.admm_kkt_form:
+        ocp_perm = blocktri.stage_perm(N)
+
+    # proximal weights: foot-velocity / yaw-rate inputs are exempt (weight
+    # 1e-3) — the landing transfer needs tens of m/s on those inputs in
+    # one node, and a uniform prox term would veto that step
+    w_prox = torch.ones(N, 32, dtype=dt, device=dev)
+    w_prox[:, 24:] = 1e-3
+    w_prox = torch.cat([torch.ones(n_eq, dtype=dt, device=dev),
+                        w_prox.reshape(-1)])
+    lam = cfg.sqp_prox
+    if cfg.sqp_elastic:
+        S_rows = z.new_zeros(m0, N)
+        S_rows[n_eq:n_eq + N].diagonal().fill_(-1.0)
+        S_pos = torch.cat([z.new_zeros(N, n_z),
+                           torch.eye(N, dtype=dt, device=dev)], dim=1)
+        P_e = z.new_zeros(B, n_z + N, n_z + N)
+        P_e[:, :n_z, :n_z] = P + lam * torch.eye(n_z, dtype=dt, device=dev)
+        P_e.diagonal(dim1=1, dim2=2)[:, n_z:] = 2.0
+        zeros_N = z.new_zeros(B, N)
+    else:
+        P_prox = P + lam * torch.diag(w_prox)
+
+    rows = torch.arange(B, device=dev)
+    r_prim = r_dual = z.new_zeros(B)
+    for _ in range(cfg.sqp_iters):
+        c, J = problem.linearize(z, params, cfg)
+        b = (J @ z[:, :, None])[:, :, 0] - c
+        # proximal (Levenberg-style) damping around the current iterate:
+        # bounds the step so the bilinear momentum rows stay within their
+        # linearization's validity region
+        if cfg.sqp_elastic:
+            q_e = torch.cat([q - lam * z,
+                             z.new_full((B, N), W_ELASTIC_ADMM)], dim=1)
+            A_e = torch.cat([
+                torch.cat([J, S_rows.expand(B, m0, N)], dim=2),
+                S_pos.expand(B, N, n_z + N)], dim=1)
+            lyap_viol = c[:, n_eq:n_eq + N].clamp_min(0.0)
+            res = admm_solve(
+                P_e, q_e, A_e,
+                torch.cat([l_c + b, zeros_N], dim=1),
+                torch.cat([u_c + b, z.new_full((B, N), torch.inf)], dim=1),
+                torch.cat([z, lyap_viol], dim=1),
+                torch.cat([y, zeros_N], dim=1), settings)
+        else:
+            res = admm_solve(P_prox, q - lam * w_prox * z, J, l_c + b,
+                             u_c + b, z, y, settings, ocp_perm=ocp_perm)
+        dz = torch.nan_to_num(res.x[:, :n_z] - z, nan=0.0, posinf=0.0,
+                              neginf=0.0)
+        # alpha = 0 is always a candidate: a QP step that worsens the merit
+        # is rejected outright, so a bad solve can never inject garbage
+        # into the warm-start loop
+        cands = z + alphas * dz                              # (nA, B, n_z)
+        merits = merit(cands.reshape(nA * B, n_z)).reshape(nA, B)
+        best = torch.argmin(torch.nan_to_num(merits, nan=float("inf")),
+                            dim=0)                           # (B,)
+        z = cands[best, rows]
+        # keep the old dual when the step was rejected; clamp to keep the
+        # PDAS penalty duals from compounding across ticks
+        accepted = best < nA - 1
+        y_new = torch.nan_to_num(res.y[:, :m0]).clamp(-1e5, 1e5)
+        y = torch.where(accepted[:, None], y_new, y)
+        r_prim, r_dual = res.r_prim, res.r_dual
+
+    c_final = problem.constraints(z, params, cfg)
+    lyap = c_final[:, n_eq:n_eq + N]
+    info = SolveInfo(
+        r_prim=r_prim, r_dual=r_dual,
+        cost=problem.cost_value(z, params, cfg),
+        lyap_violation=lyap.clamp_min(0.0).amax(dim=1),
+    )
     return SolverState(z=z, y=y), info

@@ -53,13 +53,22 @@ class TraceSummary(NamedTuple):
 
 
 def summarize(trace: Any, fall_threshold: float = 0.3) -> TraceSummary:
-    """Health metrics of ONE scenario's trace (fields shaped (T, ...))."""
+    """Health metrics of ONE scenario's trace (fields shaped (T, ...)), of
+    either loop: the solver residual is `r_prim`, or the whole-body
+    trace's `r_prim_mpc`."""
     tr = trace._asdict() if hasattr(trace, "_asdict") else dict(trace)
     com = _np(tr["com_pos"])
     ref = _np(tr["com_ref"])
     err = np.linalg.norm(com[:, :2] - ref[:, :2], axis=-1)
     hw = _np(tr["hw"])
-    r_prim = _np(tr["r_prim"])
+    if "r_prim" in tr:
+        r_prim = _np(tr["r_prim"])
+    elif "r_prim_mpc" in tr:
+        r_prim = _np(tr["r_prim_mpc"])
+    else:
+        raise KeyError(
+            "trace has neither 'r_prim' nor 'r_prim_mpc'; summarize() "
+            "needs solver residuals to report accuracy percentiles")
     adapted = _np(tr.get("adapted", np.zeros(len(com), bool)))
     return TraceSummary(
         ticks=int(com.shape[0]),

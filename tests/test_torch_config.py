@@ -99,6 +99,23 @@ def test_port_never_imports_jax():
     assert out.stdout.startswith("ok")
 
 
+def test_port_sources_name_no_jax_module():
+    """No source of the port, chip_smoke.py or a tools/*_torch.py script
+    imports jax or a module of the JAX package (comments and docstrings may
+    name them)."""
+    import glob
+    import re
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    files = (glob.glob(os.path.join(root, "cmpc_tpu_torch", "**", "*.py"),
+                       recursive=True)
+             + glob.glob(os.path.join(root, "tools", "*_torch.py"))
+             + [os.path.join(root, "chip_smoke.py")])
+    assert len(files) > 40
+    pat = re.compile(r"^\s*(import|from)\s+(jax|cmpc_tpu)(\.|\s|$)", re.M)
+    bad = [f for f in files if pat.search(open(f).read())]
+    assert not bad, bad
+
+
 def test_cli_walk_cpu(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "cmpc_tpu_torch", "walk", "--device", "cpu",
@@ -131,17 +148,13 @@ def test_scenarios_default_to_the_card(which, monkeypatch):
 
 @pytest.mark.parametrize("cmd", ["walk-wb", "sweep", "ismpc"])
 def test_cli_unported_commands_raise(cmd, monkeypatch):
-    """walk-wb is not ported and says so.  sweep and ismpc are ported:
-    without --device and without a card they raise and do not run on the
-    CPU."""
+    """Every command is ported (the name is from when some were not):
+    without --device and without a card each raises and does not run on
+    the CPU."""
     from cmpc_tpu_torch import __main__ as cli
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    if cmd == "walk-wb":
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            cli.main([cmd])
-    else:
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            cli.main([cmd, "--ticks", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([cmd, "--ticks", "1"])
 
 
 def test_cli_sweep_cpu(capsys):

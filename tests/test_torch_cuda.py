@@ -1,7 +1,8 @@
 """The port on the card: the hand-written tile kernels against their plain
 versions and numpy, and the main paths (batched solve, closed-loop ticks,
-a 256-scenario sweep) through the kernel against the same code on the CPU,
-both in f64.
+a 256-scenario sweep, whole-body ticks) through the kernel against the same
+code on the CPU, both in f64; the whole-body layer also in f32, as the card
+runs it.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports no JAX, so it also runs on a GPU machine that has none:
@@ -20,7 +21,11 @@ from cmpc_tpu_torch.ocp import assemble
 from cmpc_tpu_torch.ops import batched_chol as tbc, sqp
 from cmpc_tpu_torch.parallel import mesh as pmesh
 from cmpc_tpu_torch.plan import com_ref as crm, footsteps, timing as tm
-from cmpc_tpu_torch.sim import closed_loop
+from cmpc_tpu_torch.rbd import urdf
+from cmpc_tpu_torch.sim import closed_loop, wholebody_loop
+from cmpc_tpu_torch.wholebody import (inverse_dynamics as wbid,
+                                      plant as wbplant, setup as wbsetup)
+from cmpc_tpu_torch.wholebody.state import retrieve_state
 
 pytestmark = pytest.mark.cuda
 
@@ -316,3 +321,119 @@ def test_cuda_lanes_do_not_mix(cuda):
     far below what a reduction over the whole batch would leak."""
     from cmpc_tpu_torch import entry
     entry.dryrun_one_device(cuda, torch.float64, lane_tol=1e-10)
+
+
+# ------------------------------------------------------------- whole body
+
+ID_SETTINGS = wholebody_loop.ADMMSettings(iters=90, rho=10.0, pdas_rounds=2,
+                                          rho_adapt=2)
+
+
+def _gate_problem(model, device, dtype):
+    """Three perturbed half-sitting states with task errors (numpy noise
+    from a seed, drawn in f64), one for each contact gate (1,1), (1,0),
+    (0,1)."""
+    rng = np.random.default_rng(2)
+    dq = 0.02 * rng.normal(size=(3, model.nj))
+    dp = 1e-3 * rng.normal(size=(3, 3))
+    dv = 0.05 * rng.normal(size=(3, model.nv))
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    q = wbsetup.initial_q(model, settle=0.0012, batch=3, device=device,
+                          dtype=dtype)
+    q = q._replace(qj=q.qj + t(dq), base_pos=q.base_pos + t(dp))
+    qv = t(dv)
+    st = retrieve_state(model, q, qv)
+    z3, z6 = torch.zeros_like(st.com_pos), torch.zeros_like(st.pose_l)
+    off = 0.003
+    des = wbid.WBDesired(
+        pose_l=st.pose_l + off, vel_l=z6, acc_l=z6,
+        pose_r=st.pose_r - off, vel_r=z6, acc_r=z6,
+        com_pos=st.com_pos + off, com_vel=z3, com_acc=z3 + off,
+        torso_rotvec=st.torso_rotvec, torso_omega=z3, torso_alpha=z3,
+        base_rotvec=st.base_rotvec, base_omega=z3, base_alpha=z3,
+        joint_pos=st.joint_pos)
+    return q, qv, des, st, t([1.0, 1.0, 0.0]), t([1.0, 0.0, 1.0])
+
+
+def test_cuda_joint_torques_f32_match_cpu_f64(cuda):
+    """joint_torques (rigid-body layer, ID QP assembly, 90 ADMM iterations
+    with two rho updates on the LU-factored KKT system, two active-set
+    rounds) at the three contact gates: f64 on the card against f64 on the
+    CPU at 1e-7 N m, and f32 on the card, as the whole-body loop runs it,
+    against f64 on the CPU at 0.05 N m (torques up to ~1e2 N m)."""
+    model = urdf.load_hrp4()
+    out = {}
+    for key, dev, dtype in (("cpu", torch.device("cpu"), torch.float64),
+                            ("cuda64", cuda, torch.float64),
+                            ("cuda32", cuda, torch.float32)):
+        q, qv, des, st, gl, gr = _gate_problem(model, dev, dtype)
+        tau, res = wbid.joint_torques(model, q, qv, des, st, contact_l=gl,
+                                      contact_r=gr, settings=ID_SETTINGS)
+        assert tau.dtype == dtype and tau.device.type == dev.type
+        out[key] = tau.double().cpu().numpy()
+    assert np.isfinite(out["cuda32"]).all()
+    assert np.abs(out["cpu"]).max() > 10.0
+    np.testing.assert_allclose(out["cuda64"], out["cpu"], rtol=0, atol=1e-7)
+    np.testing.assert_allclose(out["cuda32"], out["cpu"], rtol=0, atol=0.05)
+
+
+def _wb_scenario(device, dtype, B=1):
+    sc = nominal_scenario(CFG, push=(4.0, 9.0, 0.0), push_window=(1, 6),
+                          device=device, dtype=dtype)
+    return sc.repeat(B)
+
+
+def test_cuda_wholebody_ticks_match_cpu(cuda):
+    """Ten whole-body ticks (MPC through the tile kernel, ID QP, 10
+    impulse-contact substeps) under a push over ticks 2-5: f64 on the card
+    against f64 on the CPU, the plant state at 1e-7; f32 on the card
+    finite and within 5e-3 (m, rad) and 5e-2 (m/s, rad/s) of the CPU's f64
+    state (f32 on the CPU is 7e-4 and 8e-3 away: the ID QP's 90 ADMM
+    iterations leave ~0.3 N m of f32 noise on the torques); 120 kernel
+    launches per tick."""
+    model = urdf.load_hrp4()
+    res = {}
+    for key, dev, dtype in (("cpu", torch.device("cpu"), torch.float64),
+                            ("cuda64", cuda, torch.float64),
+                            ("cuda32", cuda, torch.float32)):
+        n0 = tbc.LAUNCHES["chol_inv_tile"]
+        carry, tr = wholebody_loop.rollout(
+            model, _wb_scenario(dev, dtype), CFG, T_sim=10)
+        launches = tbc.LAUNCHES["chol_inv_tile"] - n0
+        assert launches == (10 * 120 if dev.type == "cuda" else 0)
+        assert all(bool(torch.isfinite(x.double()).all()) for x in tr)
+        res[key] = {"qv": carry.plant.qv, **carry.plant.q._asdict()}
+    for name, want in res["cpu"].items():
+        for key, atol in (("cuda64", 1e-7),
+                          ("cuda32", 5e-2 if name == "qv" else 5e-3)):
+            np.testing.assert_allclose(
+                res[key][name].double().cpu().numpy(), want.numpy(), rtol=0,
+                atol=atol, err_msg=f"{key} {name}")
+    # the push moved the plant
+    assert float(res["cpu"]["qv"].abs().max()) > 1e-3
+
+
+def test_cuda_wholebody_lanes_do_not_mix(cuda):
+    """Three whole-body ticks of four differing scenarios and of the same
+    four in another order, f64 on the card: every scenario's plant state
+    agrees at 1e-10 (the bound of test_cuda_lanes_do_not_mix; on the CPU
+    the rows are bitwise equal, tests/test_torch_wholebody.py)."""
+    model = urdf.load_hrp4()
+    sc = _wb_scenario(cuda, torch.float64, B=4)
+    scale = torch.tensor([0.0, 0.5, 1.0, -1.0], dtype=torch.float64,
+                         device=cuda)[:, None]
+    sc = sc._replace(push_force=sc.push_force * scale)
+    perm = torch.tensor([2, 0, 3, 1], device=cuda)
+    shuffled = type(sc)(*(x[perm] for x in sc))
+    a, _ = wholebody_loop.rollout(model, sc, CFG, T_sim=3)
+    b, _ = wholebody_loop.rollout(model, shuffled, CFG, T_sim=3)
+    for name, x, y in (("qv", a.plant.qv, b.plant.qv),
+                       ("qj", a.plant.q.qj, b.plant.q.qj),
+                       ("base_pos", a.plant.q.base_pos, b.plant.q.base_pos),
+                       ("z", a.solver.z, b.solver.z)):
+        np.testing.assert_allclose(y.cpu().numpy(), x[perm].cpu().numpy(),
+                                   rtol=1e-10, atol=1e-10, err_msg=name)
+    assert not torch.equal(a.plant.qv[0], a.plant.qv[2])

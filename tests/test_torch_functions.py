@@ -279,8 +279,19 @@ def test_pdip_on_landing_tick_kkt():
 
 
 def test_solve_mpc_admm_not_ported():
+    """The name is from when mpc_solver="admm" raised NotImplementedError.
+    It is ported now: the landing problem solves (finite, a step accepted,
+    the stance foot carrying the weight at node 0), and only an unknown
+    solver name raises."""
     import dataclasses
     p = _landing_params()
     state = tsqp.init_solver_state(CFG, p.x0, mass=p.mass)
-    with pytest.raises(NotImplementedError, match="1.12"):
-        tsqp.solve_mpc(state, p, dataclasses.replace(CFG, mpc_solver="admm"))
+    new, info = tsqp.solve_mpc(state, p,
+                               dataclasses.replace(CFG, mpc_solver="admm"))
+    assert torch.isfinite(new.z).all() and torch.isfinite(info.r_prim).all()
+    assert not torch.equal(new.z, state.z)
+    _, U = tprob.split_z(new.z, CFG)
+    fz_l = U[0, 0, 0:12].reshape(4, 3)[:, 2].sum()
+    assert 0.5 * 40.05 * 9.81 < float(fz_l) < 1.5 * 40.05 * 9.81
+    with pytest.raises(ValueError, match="unknown mpc_solver"):
+        tsqp.solve_mpc(state, p, dataclasses.replace(CFG, mpc_solver="x"))
