@@ -43,13 +43,24 @@ line, and no phase carries on on the CPU):
      test's bounds per scenario; (b) the recorded states of phase 4:
      finite, residual percentiles and ms per solve printed, not gated.  It
      launches no hand-written kernel;
- 10. one JSON line of kernel results, then the final status line.
+ 10. sweep across ranks — parallel/mesh on torch.distributed, each rank a
+     child process of this script (``--rank-worker``) started with
+     torchrun's variables: (a) entry.dryrun_multichip at 2 ranks, f64, its
+     three criteria at a lane tolerance of 1e-10; (b) phase 6's batch for
+     200 ticks, once on one rank of an NCCL group and once on two ranks of
+     128 started together (the ranks of (a), after it), both n = 256 and
+     finite, fall rate and mean RMSE within 3e-4 of each other, 120
+     kernel-1 launches per tick per rank.  With one card both ranks share
+     it (gloo), with more each has its own (nccl);
+ 11. one JSON line of kernel results, then the final status line.
 
-Each path of phases 4, 5, 6, 8 and 9 is driven with the kernel launch
-counters set to 0 just before it and read just after: every launch counted
-there came from that path.  The factor-only kernel has no caller on any path
+Each path of phases 4, 5, 6, 8, 9 and 10 is driven with the kernel launch
+counters set to 0 just before it and read just after (in phase 10 by each
+rank, in its own process): every launch counted there came from that
+path.  The factor-only kernel has no caller on any path
 (nor has the Pallas kernel it replaces in the JAX package); its count is
-that of phase 3.  Needs no JAX and no network; uses one card.
+that of phase 3.  Needs no JAX and no network; uses one card (or, in
+phase 10, two where there are).
 """
 
 import json
@@ -75,6 +86,10 @@ N_SWEEP, T_SWEEP, CHUNK_SWEEP = 256, 700, 100
 T_ISMPC = 500
 T_WB = 300
 N_ADMM_TIMED = 5
+N_RANKS, T_RANKS = 256, 200     # phase 10(b): phase 6's batch, 200 ticks
+RANKS_LANE_TOL = 1e-10          # phase 10(a), f64: test_cuda_lanes_do_not_mix
+RANKS_AGREE = 3e-4              # __graft_entry__.py:137, criterion 3
+RANK_TIMEOUT = 400
 
 # one NVIDIA H100 SXM (NVIDIA's data sheet): device memory rate and the
 # float32 rate outside the tensor cores
@@ -703,6 +718,226 @@ def admm_phase(dev, smi_line):
     return ms
 
 
+def rank_worker(steps, device, backend):
+    """One rank of phase 10, started by ranks_phase with torchrun's
+    variables; runs the comma-separated `steps` in one process group and
+    prints one JSON line.  "dryrun": entry.dryrun_multichip in f64.
+    "sweep": this rank's share of make_batch(WalkConfig(), N_RANKS, seed=7)
+    for T_RANKS ticks, the statistics all-reduced and the rows gathered.
+    The launch counts are set to 0 just before each step (for the sweep,
+    after a 2-tick warm-up and a barrier) and read just after it."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    from cmpc_tpu_torch import entry
+    from cmpc_tpu_torch.config import WalkConfig
+    from cmpc_tpu_torch.ops import batched_chol as bc
+    from cmpc_tpu_torch.parallel import mesh as pm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+    def zero():
+        for k in bc.LAUNCHES:
+            bc.LAUNCHES[k] = 0
+
+    def counts():
+        return {"launches": bc.LAUNCHES["chol_inv_tile"],
+                "chol_tile_launches": bc.LAUNCHES["chol_tile"]}
+
+    m = pm.make_mesh(device, backend)
+    out = {"ok": True, "rank": m.rank, "world_size": m.world_size,
+           "backend": m.backend, "device": str(m.device),
+           "card": torch.cuda.get_device_name(m.device)}
+    try:
+        if "dryrun" in steps.split(","):
+            zero()
+            res = entry.dryrun_multichip(device, backend, torch.float64,
+                                         lane_tol=RANKS_LANE_TOL)
+            out["dryrun"] = {**res, **counts()}
+        if "sweep" in steps.split(","):
+            cfg = WalkConfig()
+            batch = pm.make_batch(cfg, N_RANKS, seed=7, device="cpu",
+                                  dtype=torch.float32)
+            shard = pm.shard_scenarios(batch, m)
+            pm.sweep_per_scenario(shard, cfg, 2)
+            torch.cuda.synchronize(m.device)
+            dist.barrier()
+            zero()
+            t0 = time.perf_counter()
+            per = pm.sweep_per_scenario(shard, cfg, T_RANKS, mesh=m)
+            stats = pm.reduce_stats(per, m)
+            rows = pm.gather_per_scenario(per, m)
+            torch.cuda.synchronize(m.device)
+            wall = time.perf_counter() - t0
+            sw = {"shard": int(shard.init_com.shape[0]), "wall_s": wall,
+                  **counts(),
+                  "stats": {k: float(v) for k, v in stats._asdict().items()}}
+            if m.rank == 0:
+                sw["rows"] = {k: getattr(rows, k).double().cpu().tolist()
+                              for k in ("rmse", "max_err")}
+            out["sweep"] = sw
+    finally:
+        m.close()
+    print(json.dumps(out), flush=True)
+
+
+def launch_ranks(steps, world, device, backend, logdir):
+    """Run `world` ranks of rank_worker(steps) as child processes with
+    torchrun's variables (rendezvous on a free local port); returns their
+    JSON lines in rank order and the wall time, processes' start included.
+    Fails if a rank exits non-zero, prints no JSON or outlives
+    RANK_TIMEOUT; every child is ended before this returns."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    procs, files = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(world):
+            base = os.path.join(logdir, f"{world}-{r}")
+            out, err = open(base + ".out", "w+"), open(base + ".err", "w+")
+            files.append((out, err))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-worker",
+                 steps, device, backend], cwd=HERE, stdout=out, stderr=err,
+                env={**env, "RANK": str(r), "LOCAL_RANK": str(r),
+                     "WORLD_SIZE": str(world), "LOCAL_WORLD_SIZE": str(world),
+                     "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                     "OMP_NUM_THREADS": env.get("OMP_NUM_THREADS", "1")}))
+        deadline = time.monotonic() + RANK_TIMEOUT
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                fail(f"phase 10: rank {r} of {world} still running after "
+                     f"{RANK_TIMEOUT} s")
+        wall = time.perf_counter() - t0
+        lines = []
+        for r, (p, (out, err)) in enumerate(zip(procs, files)):
+            out.seek(0)
+            err.seek(0)
+            text = out.read().strip().splitlines()
+            try:
+                line = json.loads(text[-1]) if text else {}
+            except json.JSONDecodeError:
+                line = {}
+            if p.returncode != 0 or not line.get("ok"):
+                fail(f"phase 10: rank {r} of {world} exited {p.returncode}; "
+                     f"its stderr ends:\n" + err.read()[-3000:])
+            lines.append(line)
+        return lines, wall
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            for x in f:
+                x.close()
+
+
+def ranks_phase(smi_line):
+    """Phase 10: the sweep across ranks (parallel/mesh on torch.distributed).
+    (b) phase 6's batch for T_RANKS ticks on one rank of an NCCL group;
+    then, in one group of two ranks started together, (a)
+    entry.dryrun_multichip in f64 and (b) the same batch as two ranks of
+    128.  With one card both ranks share it (gloo), with more each takes
+    its own (nccl)."""
+    import tempfile
+
+    import torch
+
+    def say(msg):
+        phase(f"{msg} [{smi_line}]")
+
+    n_cards = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    if n_cards >= 2:
+        device2, backend2 = "cuda", "nccl"
+    else:
+        device2, backend2 = "cuda:0", "gloo"
+    per_tick = 5 * 8 * 3          # WalkConfig(): 5 tiles x pdip 8 x sqp 3
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as logdir:
+        runs = [(1, "nccl", *launch_ranks("sweep", 1, "cuda", "nccl",
+                                          logdir)),
+                (2, backend2, *launch_ranks("dryrun,sweep", 2, device2,
+                                            backend2, logdir))]
+
+    dry = [o["dryrun"] for o in runs[1][2]]
+    for r, out in enumerate(dry):
+        if (out["rank"], out["world_size"], out["n"]) != (r, 2, 4):
+            fail(f"phase 10(a): rank {r} reports {out}")
+    n_dry = sum(o["launches"] for o in dry)
+    if n_dry == 0:
+        fail("phase 10(a): dryrun_multichip never launched chol_inv_tile")
+    say(f"  (a) dryrun_multichip, 2 ranks on {device2} ({backend2}), f64: "
+        f"deviation placement {max(o['placement_dev'] for o in dry):.3e}, "
+        f"shard alone {max(o['shard_alone_dev'] for o in dry):.3e}, whole "
+        f"batch {max(o['whole_batch_dev'] for o in dry):.3e} (lane tol "
+        f"{RANKS_LANE_TOL:g}); {n_dry} kernel-1 launches")
+
+    res = []
+    for world, backend, lines, proc_s in runs:
+        sw = [o["sweep"] for o in lines]
+        st = sw[0]["stats"]
+        if any(o["stats"] != st for o in sw):
+            fail(f"phase 10(b): the {world} ranks hold different statistics")
+        if int(st["n"]) != N_RANKS or not all(np.isfinite(list(st.values()))):
+            fail(f"phase 10(b), {world} rank(s): statistics malformed: {st}")
+        launches = sum(o["launches"] for o in sw)
+        if any(o["launches"] != per_tick * T_RANKS for o in sw) or any(
+                o["chol_tile_launches"] for o in sw):
+            fail(f"phase 10(b), {world} rank(s): kernel-1 launches "
+                 f"{[o['launches'] for o in sw]}, not {per_tick} x "
+                 f"{T_RANKS} per rank, or chol_tile launched")
+        # host reduction of the gathered rows against the all-reduce
+        rows = {k: np.asarray(v) for k, v in sw[0]["rows"].items()}
+        for name, want in (("com_rmse_xy", rows["rmse"].mean()),
+                           ("max_tilt", rows["max_err"].max())):
+            if not np.isclose(st[name], want, rtol=1e-5, atol=1e-12):
+                fail(f"phase 10(b): all-reduced {name} {st[name]:.6e} != "
+                     f"the gathered rows' {want:.6e}")
+        wall = max(o["wall_s"] for o in sw)
+        rate = N_RANKS * T_RANKS / wall
+        devices = "; ".join(sorted({o["device"] for o in lines}))
+        res.append({"world_size": world, "backend": backend,
+                    "devices": devices, "launches": launches,
+                    "wall_s": wall, "processes_s": proc_s,
+                    "scenario_ticks_per_s": rate, "stats": st, "rows": rows})
+        say(f"  (b) {world} rank(s) of {N_RANKS // world} on {devices} "
+            f"({backend}): n {int(st['n'])}, fall rate "
+            f"{st['fall_rate']:.4f}, mean RMSE {st['com_rmse_xy']:.6f} m, "
+            f"max err {st['max_tilt']:.4f} m; kernel-1 launches {launches} "
+            f"= {per_tick} x {T_RANKS} x {world}; {rate:.1f} "
+            f"scenario-ticks/s ({wall:.1f} s for {T_RANKS} ticks; "
+            f"{proc_s:.1f} s for the processes)")
+    a, b = res
+    d_fall = abs(a["stats"]["fall_rate"] - b["stats"]["fall_rate"])
+    d_rmse = abs(a["stats"]["com_rmse_xy"] - b["stats"]["com_rmse_xy"])
+    d_rows = float(np.abs(a["rows"]["rmse"] - b["rows"]["rmse"]).max())
+    say(f"  1 rank vs 2: |d fall rate| {d_fall:.3e}, |d mean RMSE| "
+        f"{d_rmse:.3e} m (bound {RANKS_AGREE:g}), per-scenario RMSE max "
+        f"|d| {d_rows:.3e} m; 2 ranks / 1 rank throughput "
+        f"{b['scenario_ticks_per_s'] / a['scenario_ticks_per_s']:.3f}; "
+        f"{n_cards} card(s); phase 10 {time.perf_counter() - t_phase:.1f} s")
+    if not (d_fall <= RANKS_AGREE and d_rmse <= RANKS_AGREE):
+        fail("phase 10(b): the 1-rank and 2-rank sweeps disagree beyond "
+             f"{RANKS_AGREE:g}")
+    for r in res:
+        del r["rows"]
+    return {"cards": n_cards, "dryrun_launches": n_dry, "dryrun": dry,
+            "runs": res, "d_fall_rate": d_fall, "d_mean_rmse": d_rmse,
+            "d_rows_rmse": d_rows,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main():
     import torch
 
@@ -800,14 +1035,27 @@ def main():
     if any(bc.LAUNCHES[k] for k in kernels):
         fail("phase 9: the ADMM configuration launched a tile kernel")
 
+    # phase 10: the sweep across ranks, in child processes that count their
+    # own launches (this process's counts stay 0)
+    for k in kernels:
+        bc.LAUNCHES[k] = 0
+    phase("phase 10 sweep across ranks")
+    ranks = ranks_phase(smi_line)
+    if any(bc.LAUNCHES[k] for k in kernels):
+        fail("phase 10: the parent process launched a tile kernel")
+    n_ranks = sum(r["launches"] for r in ranks["runs"])
+
     print(json.dumps({"kernels": [
         {"name": "chol_inv_tile", "route": "cuda",
          "source": "cmpc_tpu_torch/csrc/chol_inv_tile.cu",
          "replaces": "cmpc_tpu/ops/batched_chol.py:141",
-         "launches": n_solve + n_walk + n_sweep + n_wb,
+         "launches": (n_solve + n_walk + n_sweep + n_wb
+                      + ranks["dryrun_launches"] + n_ranks),
          "launches_by_path": {"production_solve": n_solve,
                               "walk": n_walk, "sweep": n_sweep,
-                              "wholebody_walk": n_wb, "admm_solve": 0},
+                              "wholebody_walk": n_wb, "admm_solve": 0,
+                              "dryrun_multichip": ranks["dryrun_launches"],
+                              "sweep_across_ranks": n_ranks},
          **kres["chol_inv_tile"], "library_calls": 2},
         {"name": "chol_tile", "route": "cuda",
          "source": "cmpc_tpu_torch/csrc/chol_tile.cu",
@@ -825,11 +1073,15 @@ def main():
         "sweep_fall_rate": fall_rate, "sweep_rmse_survivors": rmse_alive,
         "ismpc_ticks_per_s_b1": ismpc_ticks_per_s,
         "wholebody_ticks_per_s_b1": wb_ticks_per_s,
-        "admm_solve_ms_b256": admm_ms}), flush=True)
+        "admm_solve_ms_b256": admm_ms, "sweep_across_ranks": ranks}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank_worker(*sys.argv[2:5])
+    else:
+        main()

@@ -5,11 +5,14 @@
            batched over --batch identical scenarios.
   walk-wb  the same scenario through the full whole-body pipeline
            (MPC -> ID QP -> articulated impulse-contact plant) on HRP-4.
-  sweep    a randomized Monte-Carlo robustness sweep on one device.
+  sweep    a randomized Monte-Carlo robustness sweep: on one device, or
+           under torchrun sharded over its ranks, one per card
+           (``torchrun --nproc-per-node=K -m cmpc_tpu_torch sweep``).
   ismpc    the legacy IS-MPC/LIP baseline closed loop.
 
 Every command takes --device (default cuda) and raises where that device
-is missing: none falls back to the CPU.
+is missing: none falls back to the CPU.  ``walk`` and ``walk-wb`` take
+--plots (needs matplotlib).
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ def _walk_args(p):
     _device_arg(p)
     p.add_argument("--batch", type=int, default=1,
                    help="number of identical scenarios run as one batch")
+    p.add_argument("--plots", action="store_true",
+                   help="render scenario 0's four dashboards into --out "
+                        "(needs matplotlib)")
 
 
 def _walk(args, device):
@@ -84,11 +90,17 @@ def _walk(args, device):
     if device.type == "cuda":
         meta["device_name"] = torch.cuda.get_device_name(device)
     rtrace.save(f"{args.out}/trace.npz", tr, meta=meta)
+    if args.plots:
+        from cmpc_tpu_torch.runtime import plots as rplots
+        rplots.plot_all(row0, args.out)
     print(json.dumps({**summary._asdict(), "device": str(device),
                       "batch": args.batch, "wall_s": wall}))
 
 
 def _sweep(args, device):
+    """The sweep on `device`; under torchrun's environment sharded over the
+    ranks of its process group (each on its own card unless --device names
+    one, --backend as make_mesh takes it), rank 0 printing the JSON."""
     import torch
 
     from cmpc_tpu_torch.config import WalkConfig
@@ -96,12 +108,30 @@ def _sweep(args, device):
 
     t0 = time.time()
     cfg = WalkConfig(sqp_iters=2, admm_iters=15)
-    batch = pmesh.make_batch(cfg, n=max(args.n, 1), seed=args.seed,
-                             device=device, dtype=torch.float32)
-    stats = pmesh.sweep(batch, cfg, T_sim=args.ticks)
-    out = {k: float(v) for k, v in stats._asdict().items()}
+    kw = dict(seed=args.seed, dtype=torch.float32)
+    if not pmesh.under_torchrun():
+        batch = pmesh.make_batch(cfg, n=max(args.n, 1), device=device, **kw)
+        stats = pmesh.sweep(batch, cfg, T_sim=args.ticks)
+        out = {k: float(v) for k, v in stats._asdict().items()}
+        rank = 0
+    else:
+        m = pmesh.make_mesh(args.device, args.backend)
+        try:
+            W = m.world_size
+            n = max(args.n, W)
+            n -= n % W
+            batch = pmesh.make_batch(cfg, n=n, device="cpu", **kw)
+            stats = pmesh.sweep(pmesh.shard_scenarios(batch, m), cfg,
+                                T_sim=args.ticks, mesh=m)
+            # read before the group is torn down (NCCL reduces
+            # asynchronously on the card)
+            out = {k: float(v) for k, v in stats._asdict().items()}
+        finally:
+            m.close()
+        rank = m.rank
     out["wall_s"] = time.time() - t0
-    print(json.dumps(out))
+    if rank == 0:
+        print(json.dumps(out))
 
 
 def _ismpc(args, device):
@@ -129,6 +159,10 @@ def main(argv=None):
     sp.add_argument("--ticks", type=int, default=400)
     sp.add_argument("--seed", type=int, default=0)
     _device_arg(sp)
+    sp.add_argument("--backend", default=None,
+                    help="under torchrun: the process group's backend "
+                         "(default nccl on cards, gloo on the CPU; ranks "
+                         "sharing one card pass gloo)")
     ip = sub.add_parser("ismpc")
     ip.add_argument("--out", default="runs/ismpc")
     ip.add_argument("--ticks", type=int, default=500)

@@ -104,6 +104,14 @@ def default_vref(num_steps: int = 20) -> np.ndarray:
     return out
 
 
+class Gains(NamedTuple):
+    """Backstepping gains of the change of coordinates (paper §III;
+    centroidal_mpc_vertices.py:27-31), per scenario."""
+
+    k1: torch.Tensor  # () or (B,)
+    k2: torch.Tensor
+
+
 class Scenario(NamedTuple):
     """Per-scenario parameters, each with a leading batch axis (B, ...).
     Tick fields (push_start, push_end, payload_onset) are int64."""

@@ -5,9 +5,10 @@ entry(device)      -> (step, (states, params)): one batched centroidal MPC
 dryrun_one_device  -> a tiny sweep on one device held to the two criteria of
                       the JAX package's ``dryrun_multichip`` that exist
                       without a mesh: lane independence and the device
-                      reductions.  Its third criterion compares a sharded
-                      with an unsharded program and has no counterpart on
-                      one card.
+                      reductions.
+dryrun_multichip   -> the same tiny sweep sharded over the ranks of a
+                      process group, held to all three criteria; called in
+                      every rank.
 """
 
 from __future__ import annotations
@@ -102,3 +103,92 @@ def dryrun_one_device(device="cuda", dtype=torch.float32,
         np.testing.assert_allclose(
             float(got), float(want), rtol=1e-5, atol=1e-12,
             err_msg=f"device reduction of {name} != host reduction")
+
+
+def dryrun_multichip(device="cuda", backend: str | None = None,
+                     dtype=torch.float32, lane_tol: float = 0.0) -> dict:
+    """Shard a tiny sweep over the ranks of the process group (2 scenarios
+    per rank, 4 ticks of the small gait) and check, raising AssertionError,
+    the three criteria of ``__graft_entry__.dryrun_multichip``:
+
+    1. Placement invariance: a derangement that moves scenarios across
+       ranks and lanes, undone, leaves every result unchanged — bitwise
+       with lane_tol == 0 (the CPU), within lane_tol on a card (see
+       :func:`dryrun_one_device`).
+    2. Collectives against the host: the all-reduced SweepStats equal a
+       reduction of the all-gathered rows (rtol 1e-5; only the summation
+       order differs).
+    3. Sharded against unsharded: each rank's rows equal a one-process run
+       of the same shard at the same width (bitwise with lane_tol == 0),
+       and the rows of the whole batch run in one process, which differs
+       in width only (within lane_tol: bitwise on the CPU, where lanes are
+       independent).  The JAX package bounds this loosely (3e-4 m) because
+       XLA compiles another program per width; eager torch runs the same
+       kernels.
+
+    Every rank builds the mesh (:func:`parallel.mesh.make_mesh`) on
+    `device` and `backend` and returns the same figures: the ranks, the
+    scenario count and, per criterion, the largest deviation found."""
+    from cmpc_tpu_torch.parallel import mesh as pmesh
+
+    m = pmesh.make_mesh(device, backend)
+    cfg = WalkConfig(sqp_iters=2, admm_iters=5, num_steps=4,
+                     ss_duration=7, ds_duration=3)
+    n, T = 2 * m.world_size, 4
+    batch = pmesh.make_batch(cfg, n=n, seed=0, device="cpu", dtype=dtype)
+    shard = pmesh.shard_scenarios(batch, m)
+
+    def rows(per):
+        return {k: v.cpu().numpy() for k, v in per._asdict().items()}
+
+    def worst(a, b):
+        return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+    stats = pmesh.sweep(shard, cfg, T, mesh=m)
+    if not np.isfinite(float(stats.com_rmse_xy)) or int(stats.n) != n:
+        raise AssertionError(f"sweep statistics malformed: {stats}")
+    local = pmesh.sweep_per_scenario(shard, cfg, T, mesh=m)
+    per = rows(pmesh.gather_per_scenario(local, m))
+
+    # 1. placement invariance
+    perm = np.roll(np.arange(n), n // 2 + 1)
+    batch_p = type(batch)(*(v[torch.as_tensor(perm)] for v in batch))
+    per_p = rows(pmesh.gather_per_scenario(pmesh.sweep_per_scenario(
+        pmesh.shard_scenarios(batch_p, m), cfg, T, mesh=m), m))
+    inv = np.argsort(perm)
+    per_p = {k: v[inv] for k, v in per_p.items()}
+    for name, a in per.items():
+        np.testing.assert_allclose(
+            per_p[name], a, rtol=0, atol=lane_tol,
+            err_msg=f"placement across ranks changed result: {name}")
+
+    # 2. collectives against the host
+    for got, want, name in (
+            (stats.com_rmse_xy, np.mean(per["rmse"]), "rmse"),
+            (stats.max_tilt, np.max(per["max_err"]), "max_tilt"),
+            (stats.mean_lyap_violation, np.mean(per["lyap"]), "lyap"),
+            (stats.mean_r_prim, np.mean(per["r_prim"]), "r_prim"),
+            (stats.fall_rate, np.mean(per["max_err"] > pmesh.FALL_ERR),
+             "fall_rate")):
+        np.testing.assert_allclose(
+            float(got), float(want), rtol=1e-5, atol=1e-12,
+            err_msg=f"all-reduced {name} != host reduction")
+
+    # 3. sharded against unsharded: the same shard alone, and the whole
+    # batch at its own width, each in this process
+    mine = rows(local)
+    alone = rows(pmesh.sweep_per_scenario(shard, cfg, T))
+    whole = rows(pmesh.sweep_per_scenario(batch.to(m.device), cfg, T))
+    k = n // m.world_size
+    whole = {name: v[m.rank * k:(m.rank + 1) * k]
+             for name, v in whole.items()}
+    for ref, what in ((alone, "the shard alone"), (whole, "the whole batch")):
+        for name, a in mine.items():
+            np.testing.assert_allclose(
+                a, ref[name], rtol=0, atol=lane_tol,
+                err_msg=f"rank {m.rank}'s rows != {what}: {name}")
+    return {"rank": m.rank, "world_size": m.world_size,
+            "backend": m.backend, "device": str(m.device), "n": n,
+            "placement_dev": worst(per_p, per),
+            "shard_alone_dev": worst(mine, alone),
+            "whole_batch_dev": worst(mine, whole)}

@@ -1,12 +1,14 @@
 """State elimination (condensing) of the centroidal MPC subproblem, batched
-(port of ``cmpc_tpu.ocp.condense``, structured form).
+(port of ``cmpc_tpu.ocp.condense``).
 
 At base point z = [vec(Xbar), vec(Ubar)] with Xbar = rollout(x0, Ubar), the
 subproblem reduces to the input space, dX = E dU, and becomes a dense
-inequality QP in v = [dU (32N), s (ns)]: min 1/2 v'Hv + g'v s.t. C v <= d,
-plus the per-stage friction/unilaterality blocks C_blk v_stage <= d_blk.
-See the JAX module for the reasoning behind W_ELASTIC, SOFT_MARGIN and
-the row hygiene.
+inequality QP in v = [dU (32N), s (ns)]: min 1/2 v'Hv + g'v s.t. C v <= d.
+The structured form (the solver's) keeps the friction/unilaterality rows
+out of C as per-stage blocks C_blk v_stage <= d_blk and never builds the
+dense Jacobian; the dense form (the default, as in the JAX package) builds
+C whole from ``problem.linearize``.  See the JAX module for the reasoning
+behind W_ELASTIC, SOFT_MARGIN and the row hygiene.
 """
 
 from __future__ import annotations
@@ -96,6 +98,39 @@ def soft_row_parts(lam_soft, params: problem.MPCParams, cfg: WalkConfig,
     return _soft_row_index(N), Q11, lam_mom
 
 
+def soft_row_hessian(lam_soft, params: problem.MPCParams, cfg: WalkConfig,
+                     psd: bool = True):
+    """(B, n_z, n_z): the lam-weighted Hessian of the Lyapunov/momentum rows
+    over z = [vec(X), vec(U)], convexified (psd=True) or exact (psd=False);
+    :func:`soft_row_parts` scattered into a dense matrix (see the JAX
+    module's docstring for the derivation)."""
+    idx, Q11, lam_mom = soft_row_parts(lam_soft, params, cfg, psd)
+    B, N = Q11.shape[:2]
+    dev = lam_soft.device
+    H = lam_soft.new_zeros(B, cfg.n_z, cfg.n_z)
+    b = torch.arange(B, device=dev)[:, None, None, None]
+    for k in range(3):
+        ik = const(("soft_idx_axis", N, k), lambda k=k: idx[:, :, k], dev)
+        H.index_put_((b, ik[None, :, :, None], ik[None, :, None, :]), Q11,
+                     accumulate=True)
+    hw1 = torch.arange(26, 29, device=dev)
+    H[:, hw1, hw1] += 2.0 * lam_mom[:, None]
+    return H
+
+
+@functools.lru_cache(maxsize=8)
+def _dynamics_index(N: int):
+    """(rows, cols_x, cols_u) gathering -A_i (N, 20, 20) and -B_i
+    (N, 20, 32) out of the dense Jacobian's dynamics rows."""
+    nX = 20 * (N + 1)
+    rows = 20 + 20 * np.arange(N)[:, None, None] + np.arange(20)[None, :, None]
+    cols_x = (20 * np.arange(N))[:, None, None] + np.arange(20)[None, None]
+    cols_u = (nX + 32 * np.arange(N))[:, None, None] \
+        + np.arange(32)[None, None]
+    return (rows, np.broadcast_to(cols_x, (N, 20, 20)).copy(),
+            np.broadcast_to(cols_u, (N, 20, 32)).copy())
+
+
 @functools.lru_cache(maxsize=8)
 def _block_rows(mu: float):
     """(40, 24) stage block [fric_l(16), fric_r(16), fz_l(4), fz_r(4)] on
@@ -123,13 +158,9 @@ def build(z, params: problem.MPCParams, cfg: WalkConfig, prox, w_prox_u,
 
     prox: (B,) or float, proximal weight on dU with per-coordinate weights
     w_prox_u (nU,).  lam_soft (B, ns): Lyapunov/momentum multiplier
-    estimates whose convexified constraint Hessian enters H.  Only the
-    structured form is ported (the dense form is a test oracle of the JAX
-    package)."""
-    if not structured:
-        raise NotImplementedError(
-            "condense.build: only structured=True is ported; the dense form "
-            "is a test oracle of the JAX package")
+    estimates whose convexified constraint Hessian enters H.  structured:
+    the friction/unilaterality rows as per-stage blocks (C_blk, d_blk) and
+    no dense Jacobian; otherwise every row in C and C_blk = d_blk = None."""
     N = cfg.N
     nX = 20 * (N + 1)
     nU = 32 * N
@@ -141,9 +172,18 @@ def build(z, params: problem.MPCParams, cfg: WalkConfig, prox, w_prox_u,
 
     l_all, u_all = problem.constraint_bounds(cfg)
 
-    parts = problem.linearize_parts(z, params, cfg)
-    c = parts.c
-    A_blk, B_blk = parts.A_blk, parts.B_blk
+    if structured:
+        parts = problem.linearize_parts(z, params, cfg)
+        c = parts.c
+        A_blk, B_blk = parts.A_blk, parts.B_blk
+    else:
+        # linearize() writes the dynamics rows as [+I at x_{i+1}] - A_i -
+        # B_i: A_i and B_i come back out of J with a sign flip
+        c, J = problem.linearize(z, params, cfg)
+        rows, cols_x, cols_u = (const(("dyn_idx", N, k), lambda a=a: a, dev)
+                                for k, a in enumerate(_dynamics_index(N)))
+        A_blk = -J[:, rows, cols_x]                           # (B,N,20,20)
+        B_blk = -J[:, rows, cols_u]                           # (B,N,20,32)
 
     # sensitivity E: dx_{i+1} = A_i dx_i + B_i du_i, dx_0 = 0
     E_rows = [z.new_zeros(B, 20, nU)]
@@ -153,22 +193,32 @@ def build(z, params: problem.MPCParams, cfg: WalkConfig, prox, w_prox_u,
         E_rows.append(Ei)
     E = torch.cat(E_rows, dim=1)                              # (B, nX, nU)
 
-    dX_diag, Puu_c, q = problem.cost_quadratic_parts(params, cfg)
-    gz_X = dX_diag * z[:, :nX] + q[:, :nX]
-    gz_U = (Puu_c @ z[:, nX:, None])[..., 0] + q[:, nX:]
     Et = E.transpose(-1, -2)
-    Hc = Et @ (dX_diag[:, :, None] * E) + Puu_c
-    if lam_soft is not None:
-        idx, Q11, lam_mom = soft_row_parts(lam_soft, params, cfg)
-        SE = torch.cat([E, torch.eye(nU, dtype=dt, device=dev)
-                        .expand(B, nU, nU)], dim=1)
-        R = SE[:, const(("soft_idx", N), lambda: idx.reshape(-1), dev)] \
-            .reshape(B, N, 11, 3, nU)
-        Y = torch.einsum("bnij,bnjkc->bnikc", Q11, R)
-        Hc = Hc + torch.einsum("bnika,bnikc->bac", R, Y)
-        E_hw1 = E[:, 26:29]                                   # (B, 3, nU)
-        Hc = Hc + 2.0 * lam_mom[:, None, None] \
-            * (E_hw1.transpose(-1, -2) @ E_hw1)
+    if structured:
+        dX_diag, Puu_c, q = problem.cost_quadratic_parts(params, cfg)
+        gz_X = dX_diag * z[:, :nX] + q[:, :nX]
+        gz_U = (Puu_c @ z[:, nX:, None])[..., 0] + q[:, nX:]
+        Hc = Et @ (dX_diag[:, :, None] * E) + Puu_c
+        if lam_soft is not None:
+            idx, Q11, lam_mom = soft_row_parts(lam_soft, params, cfg)
+            SE = torch.cat([E, torch.eye(nU, dtype=dt, device=dev)
+                            .expand(B, nU, nU)], dim=1)
+            R = SE[:, const(("soft_idx", N), lambda: idx.reshape(-1), dev)] \
+                .reshape(B, N, 11, 3, nU)
+            Y = torch.einsum("bnij,bnjkc->bnikc", Q11, R)
+            Hc = Hc + torch.einsum("bnika,bnikc->bac", R, Y)
+            E_hw1 = E[:, 26:29]                               # (B, 3, nU)
+            Hc = Hc + 2.0 * lam_mom[:, None, None] \
+                * (E_hw1.transpose(-1, -2) @ E_hw1)
+    else:
+        P, q = problem.cost_quadratic(params, cfg)
+        gz = (P @ z[..., None])[..., 0] + q
+        PH = P if lam_soft is None else P + soft_row_hessian(
+            lam_soft, params, cfg)
+        Pxx, Pxu = PH[:, :nX, :nX], PH[:, :nX, nX:]
+        Puu = PH[:, nX:, nX:]
+        Hc = Et @ (Pxx @ E) + Et @ Pxu + Pxu.transpose(-1, -2) @ E + Puu
+        gz_X, gz_U = gz[:, :nX], gz[:, nX:]
     prox = torch.as_tensor(prox, dtype=dt, device=dev)
     if prox.dim() == 0:
         prox = prox.expand(B)
@@ -183,51 +233,60 @@ def build(z, params: problem.MPCParams, cfg: WalkConfig, prox, w_prox_u,
     H[:, ar, ar] += 1.0
     g = torch.cat([gc, z.new_full((B, ns), W_ELASTIC)], dim=1)
 
-    # dense rows [lyap(N), mom(1), height(N), box(6N)]; the friction and
-    # unilaterality rows become per-stage (40, 24) blocks
-    f0_rel = 2 * N + 1
-    b0_rel = f0_rel + 40 * N
-    sel = np.concatenate([np.arange(f0_rel), b0_rel + np.arange(6 * N)])
-    c_in = c[:, n_eq:][:, const(("dense_sel", N), lambda: sel, dev)]
-    lo = const(("dense_lo", cfg), lambda: l_all[n_eq:][sel], dev, dt)
-    hi = const(("dense_hi", cfg), lambda: u_all[n_eq:][sel], dev, dt)
-    Er = E.reshape(B, N + 1, 20, nU)
-    G_ly = torch.einsum("bnk,bnkj->bnj", parts.gx, Er[:, :N]) \
-        + torch.einsum("bnk,bnkj->bnj", parts.gxn, Er[:, 1:])
-    G_ly = G_ly.reshape(B, N, N, 32)
-    G_ly[:, torch.arange(N, device=dev), torch.arange(N, device=dev)] += \
-        parts.gu
-    G_ly = G_ly.reshape(B, N, nU)
-    G_mom = (parts.hw1[:, None, :] @ E[:, 26:29])              # (B, 1, nU)
-    G_h = E[:, const(("rows_h", N), lambda: 20 * np.arange(N) + 2, dev)]
-    rows_bl = (20 * (np.arange(N) + 1))[:, None] + 13 + np.arange(3)
-    G_bl = E[:, const(("rows_bl", N), lambda: rows_bl.reshape(-1), dev)] \
-        * params.gamma_l[:, 1:].repeat_interleave(3, dim=1)[:, :, None]
-    G_br = E[:, const(("rows_br", N), lambda: (rows_bl + 4).reshape(-1),
-                      dev)] \
-        * params.gamma_r[:, 1:].repeat_interleave(3, dim=1)[:, :, None]
-    G = torch.cat([G_ly, G_mom, G_h, G_bl, G_br], dim=1)
+    if structured:
+        # dense rows [lyap(N), mom(1), height(N), box(6N)]; the friction and
+        # unilaterality rows become per-stage (40, 24) blocks
+        f0_rel = 2 * N + 1
+        b0_rel = f0_rel + 40 * N
+        sel = np.concatenate([np.arange(f0_rel), b0_rel + np.arange(6 * N)])
+        c_in = c[:, n_eq:][:, const(("dense_sel", N), lambda: sel, dev)]
+        lo = const(("dense_lo", cfg), lambda: l_all[n_eq:][sel], dev, dt)
+        hi = const(("dense_hi", cfg), lambda: u_all[n_eq:][sel], dev, dt)
+        Er = E.reshape(B, N + 1, 20, nU)
+        G_ly = torch.einsum("bnk,bnkj->bnj", parts.gx, Er[:, :N]) \
+            + torch.einsum("bnk,bnkj->bnj", parts.gxn, Er[:, 1:])
+        G_ly = G_ly.reshape(B, N, N, 32)
+        G_ly[:, torch.arange(N, device=dev), torch.arange(N, device=dev)] += \
+            parts.gu
+        G_ly = G_ly.reshape(B, N, nU)
+        G_mom = (parts.hw1[:, None, :] @ E[:, 26:29])          # (B, 1, nU)
+        G_h = E[:, const(("rows_h", N), lambda: 20 * np.arange(N) + 2, dev)]
+        rows_bl = (20 * (np.arange(N) + 1))[:, None] + 13 + np.arange(3)
+        G_bl = E[:, const(("rows_bl", N), lambda: rows_bl.reshape(-1), dev)] \
+            * params.gamma_l[:, 1:].repeat_interleave(3, dim=1)[:, :, None]
+        G_br = E[:, const(("rows_br", N), lambda: (rows_bl + 4).reshape(-1),
+                          dev)] \
+            * params.gamma_r[:, 1:].repeat_interleave(3, dim=1)[:, :, None]
+        G = torch.cat([G_ly, G_mom, G_h, G_bl, G_br], dim=1)
 
-    W1 = const(("block_rows", cfg.mu), lambda: _block_rows(cfg.mu), dev, dt)
-    gl_n, gr_n = params.gamma_l[:, :N, None], params.gamma_r[:, :N, None]
-    gate = torch.cat([gl_n.expand(B, N, 16), gr_n.expand(B, N, 16),
-                      gl_n.expand(B, N, 4), gr_n.expand(B, N, 4)], dim=2)
-    W = W1 * gate[..., None]                                  # (B,N,40,24)
-    cf = c[:, n_eq + f0_rel:n_eq + b0_rel]
-    c_blk = torch.cat([
-        cf[:, :16 * N].reshape(B, N, 16),
-        cf[:, 16 * N:32 * N].reshape(B, N, 16),
-        cf[:, 32 * N:36 * N].reshape(B, N, 4),
-        cf[:, 36 * N:].reshape(B, N, 4)], dim=2)              # (B,N,40)
-    d_blk = -c_blk
-    rn_b = W.abs().amax(dim=3)
-    vac_b = rn_b < 1e-9
-    sc_b = torch.where(vac_b, 1.0, 1.0 / rn_b.clamp_min(1e-2))
-    W = W * sc_b[..., None]
-    d_blk = torch.where(vac_b, 1.0, d_blk * sc_b)
-    fac_b = torch.clamp(10.0 / d_blk.abs().clamp_min(1e-12), max=1.0)
-    W = W * fac_b[..., None]
-    d_blk = d_blk * fac_b
+        W1 = const(("block_rows", cfg.mu), lambda: _block_rows(cfg.mu), dev,
+                   dt)
+        gl_n, gr_n = params.gamma_l[:, :N, None], params.gamma_r[:, :N, None]
+        gate = torch.cat([gl_n.expand(B, N, 16), gr_n.expand(B, N, 16),
+                          gl_n.expand(B, N, 4), gr_n.expand(B, N, 4)], dim=2)
+        W = W1 * gate[..., None]                              # (B,N,40,24)
+        cf = c[:, n_eq + f0_rel:n_eq + b0_rel]
+        c_blk = torch.cat([
+            cf[:, :16 * N].reshape(B, N, 16),
+            cf[:, 16 * N:32 * N].reshape(B, N, 16),
+            cf[:, 32 * N:36 * N].reshape(B, N, 4),
+            cf[:, 36 * N:].reshape(B, N, 4)], dim=2)          # (B,N,40)
+        d_blk = -c_blk
+        rn_b = W.abs().amax(dim=3)
+        vac_b = rn_b < 1e-9
+        sc_b = torch.where(vac_b, 1.0, 1.0 / rn_b.clamp_min(1e-2))
+        W = W * sc_b[..., None]
+        d_blk = torch.where(vac_b, 1.0, d_blk * sc_b)
+        fac_b = torch.clamp(10.0 / d_blk.abs().clamp_min(1e-12), max=1.0)
+        W = W * fac_b[..., None]
+        d_blk = d_blk * fac_b
+    else:
+        J_in = J[:, n_eq:]
+        c_in = c[:, n_eq:]
+        lo = const(("ineq_lo", cfg), lambda: l_all[n_eq:], dev, dt)
+        hi = const(("ineq_hi", cfg), lambda: u_all[n_eq:], dev, dt)
+        W = d_blk = None
+        G = J_in[:, :, :nX] @ E + J_in[:, :, nX:]             # (B,m_in,nU)
 
     # Lyapunov rows get the tightening margin; the momentum row does not
     hi = hi.clone()

@@ -5,9 +5,11 @@ Solves, per scenario b,  min 1/2 v'H_b v + g_b'v  s.t.  C_b v <= d_b
 (plus the optional per-stage blocks C_blk/d_blk) with a fixed iteration
 count, so every scenario runs in lockstep.  Every reduction — the cost
 scale, mu, the fraction-to-boundary step and the non-finite guard — is
-taken per scenario.  Each iteration inverts the Newton matrix explicitly
-(through :func:`batched_chol.spd_inverse64` for n >= 128) and applies the
-inverse as a matrix.
+taken per scenario.  By default each iteration inverts the Newton matrix
+explicitly (through :func:`batched_chol.spd_inverse64` for n >= 128, the
+library's Cholesky below that or with ``inv_method="xla"``) and applies the
+inverse as a matrix; ``explicit_inv=False`` factors it once per iteration
+and applies the factor by substitution to each right-hand side.
 """
 
 from __future__ import annotations
@@ -28,6 +30,13 @@ class PDIPSettings(NamedTuple):
     reg: float = 1e-8          # Newton-matrix diagonal regularization
     d_clip: float = 1e8        # clip on the complementarity scaling lam/w
     mu_min: float = 1e-9       # barrier floor
+    # apply M^-1 as an explicit matrix (False: one factorization per
+    # iteration, applied to each right-hand side by substitution)
+    explicit_inv: bool = True
+    # how the explicit inverse is built: "blocked" = batched_chol (the
+    # tile kernel) for n >= 128; anything else ("xla" in the JAX package's
+    # name) = the library's Cholesky and solve against I
+    inv_method: str = "blocked"
     refine: int = 2            # iterative-refinement passes per solve
 
 
@@ -132,17 +141,23 @@ def pdip_solve(H, g, C, d, settings: PDIPSettings = PDIPSettings(),
 
         dscale = torch.clamp(lam / w, 1e-12, d_clip)
         M = newton_matrix(dscale, reg)
-        # the blocked inverse (and its tile kernel) at the MPC's sizes;
-        # small QPs, off the production path, take LAPACK's Cholesky as the
-        # JAX package takes its cho path there
-        if n >= 128:
-            Minv = spd_inverse64(M)
-        else:
-            Minv = torch.cholesky_solve(eye_n.expand(B, n, n),
-                                        _cho_factor(M))
+        if settings.explicit_inv:
+            # the blocked inverse (and its tile kernel) at the MPC's sizes;
+            # small QPs, off the production path, take the library's
+            # Cholesky as the JAX package takes its cho path there
+            if settings.inv_method == "blocked" and n >= 128:
+                Minv = spd_inverse64(M)
+            else:
+                Minv = torch.cholesky_solve(eye_n.expand(B, n, n),
+                                            _cho_factor(M))
 
-        def solve(rhs):
-            return _mv(Minv, rhs)
+            def solve(rhs):
+                return _mv(Minv, rhs)
+        else:
+            chol = _cho_factor(M)
+
+            def solve(rhs):
+                return torch.cholesky_solve(rhs[..., None], chol)[..., 0]
 
         def newton(r_c):
             rhs = -r_d + CTmv((r_c - lam * r_p) / w)

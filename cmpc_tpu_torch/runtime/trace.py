@@ -1,6 +1,7 @@
 """Trace persistence and summary metrics (port of
 ``cmpc_tpu.runtime.trace``): one compressed .npz per run with the field
-names preserved, and the walk's health metrics."""
+names preserved, read back by :func:`load` (files of either package), and
+the walk's health metrics."""
 
 from __future__ import annotations
 
@@ -38,6 +39,13 @@ def save(path: str, trace: Any, meta: dict | None = None) -> None:
     if meta is not None:
         with open(path + ".json", "w") as f:
             json.dump(meta, f, indent=2, default=str)
+
+
+def load(path: str) -> dict:
+    """A saved trace as {field: np.ndarray} (nested names joined by '/'),
+    whichever package saved it."""
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
 
 
 class TraceSummary(NamedTuple):

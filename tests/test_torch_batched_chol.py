@@ -55,6 +55,24 @@ def test_tri_inv_blocksub_matches_jax(x64):
                                atol=1e-12)
 
 
+@pytest.mark.parametrize("n,nb", [(320, 64), (320, 32), (64, 32)])
+def test_tri_inv_blocked_matches_jax_and_blocksub(n, nb, x64):
+    """The Neumann inverse (K = 5, 10 and 2 blocks: squarings with and
+    without the inner products) against JAX's at 1e-12, and against the
+    block substitution it is the oracle of at 1e-10."""
+    M = _spd(np.random.default_rng(4), 2, n)
+    Lj, Dj = jbc.blocked_cholesky(jnp.asarray(M), nb)
+    Xj = np.asarray(jbc.tri_inv_blocked(Lj, Dj))
+    Lt, Dt = tbc.blocked_cholesky(torch.tensor(M), nb)
+    Xt = tbc.tri_inv_blocked(Lt, Dt)
+    np.testing.assert_allclose(Xt.numpy(), Xj, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(Xt.numpy(), tbc.tri_inv_blocksub(Lt, Dt)
+                               .numpy(), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(Xt.numpy() @ Lt.numpy(),
+                               np.broadcast_to(np.eye(n), (2, n, n)),
+                               rtol=0, atol=1e-10)
+
+
 @pytest.mark.parametrize("n,nb", [(320, 64), (96, 32)])
 def test_spd_inverse_matches_jax(n, nb, x64):
     M = _spd(np.random.default_rng(1), 2, n, shift=5.0)

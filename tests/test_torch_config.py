@@ -81,6 +81,14 @@ def test_scenario_to_and_repeat():
     assert s64.push_start.dtype == torch.int64
 
 
+def test_gains_equal():
+    """Gains: the JAX NamedTuple's fields, in order, holding per-scenario
+    tensors."""
+    assert tconfig.Gains._fields == jconfig.Gains._fields == ("k1", "k2")
+    g = tconfig.Gains(k1=torch.tensor([4.0, 7.0]), k2=torch.tensor([0.1, 1.0]))
+    assert g.k1.shape == (2,) and g._asdict().keys() == {"k1", "k2"}
+
+
 def test_port_never_imports_jax():
     code = (
         "import pkgutil, importlib, sys\n"

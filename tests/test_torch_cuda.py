@@ -2,7 +2,8 @@
 versions and numpy, and the main paths (batched solve, closed-loop ticks,
 a 256-scenario sweep, whole-body ticks) through the kernel against the same
 code on the CPU, both in f64; the whole-body layer also in f32, as the card
-runs it.
+runs it; the sweep across two ranks sharing the card, and the dense
+condensing in f32 against the CPU's f64.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports no JAX, so it also runs on a GPU machine that has none:
@@ -10,6 +11,7 @@ imports no JAX, so it also runs on a GPU machine that has none:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import json
 import os
 
 import numpy as np
@@ -437,3 +439,59 @@ def test_cuda_wholebody_lanes_do_not_mix(cuda):
         np.testing.assert_allclose(y.cpu().numpy(), x[perm].cpu().numpy(),
                                    rtol=1e-10, atol=1e-10, err_msg=name)
     assert not torch.equal(a.plant.qv[0], a.plant.qv[2])
+
+
+# ------------------------------------------------ ranks, dense condensing
+
+def test_cuda_dryrun_multichip_two_ranks(cuda):
+    """entry.dryrun_multichip at 2 ranks sharing the card (gloo), f64: its
+    three criteria at the lane tolerance of test_cuda_lanes_do_not_mix."""
+    from _torch_mesh_worker import run_ranks
+    outs = run_ranks(["tests/_torch_mesh_worker.py", "dryrun", "cuda:0",
+                      "gloo", "float64", "1e-10"])
+    for r, (rc, out, err) in enumerate(outs):
+        assert rc == 0, err[-3000:]
+        line = json.loads(out.strip().splitlines()[-1])
+        assert (line["rank"], line["world_size"], line["n"]) == (r, 2, 4)
+        assert line["device"] == "cuda:0" and line["backend"] == "gloo"
+        assert max(line["placement_dev"], line["shard_alone_dev"],
+                   line["whole_batch_dev"]) <= 1e-10
+
+
+def test_cuda_make_mesh_refuses_nccl_on_a_shared_card(cuda):
+    """Two ranks asking NCCL for the same card: make_mesh raises in both
+    before NCCL's first collective."""
+    from _torch_mesh_worker import run_ranks
+    outs = run_ranks(["tests/_torch_mesh_worker.py", "mesh", "cuda:0",
+                      "nccl"])
+    for rc, _, err in outs:
+        assert rc != 0 and "hold the same card" in err, err[-3000:]
+
+
+def test_cuda_condense_dense_f32_matches_cpu_f64(cuda):
+    """condense.build's dense form (its default) at four recorded walk
+    ticks with multipliers on the soft rows: f32 on the card against f64 on
+    the CPU, every field finite and within 1e-4 of its largest magnitude."""
+    from cmpc_tpu_torch.ocp import condense, problem
+    f64 = torch.float64
+    p = _recorded_params(torch.device("cpu"), [250, 262, 300, 420])
+    st = sqp.init_solver_state(CFG, p.x0, mass=p.mass)
+    U = sqp.prep_warmstart(st, p, CFG)
+    z = problem.join_z(sqp._rollout_X(p.x0, U, p, CFG), U)
+    lam = torch.full((4, CFG.N + 1), 5.0, dtype=f64)
+    w = torch.ones(32 * CFG.N, dtype=f64)
+    want = condense.build(z, p, CFG, 0.1, w, lam_soft=lam)
+
+    def f32(x):
+        return x.to(cuda, torch.float32) if x.is_floating_point() \
+            else x.to(cuda)
+
+    got = condense.build(f32(z), type(p)(*map(f32, p)), CFG, 0.1, f32(w),
+                         lam_soft=f32(lam))
+    assert got.C_blk is None and got.H.dtype == torch.float32
+    for name in ("H", "g", "C", "d", "E", "row_scale"):
+        a, b = getattr(got, name).double().cpu(), getattr(want, name)
+        assert bool(torch.isfinite(a).all()), name
+        scale = max(1.0, float(b.abs().max()))
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=1e-4 * scale, err_msg=name)

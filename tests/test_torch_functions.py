@@ -179,11 +179,177 @@ def test_condense_build_structured(soft):
         close(a, b, tol=TOL * scale)
 
 
-def test_condense_dense_form_not_ported():
+@pytest.mark.parametrize("soft", [False, True])
+def test_condense_build_dense(soft):
+    """The dense form, build's default as in the JAX package: every row in
+    C, no per-stage blocks; against JAX at TOL (scaled by the magnitude)."""
     p, z, w, lam, prox = _qp_inputs(4)
-    with pytest.raises(NotImplementedError):
-        tcond.build(torch.tensor(z), convert.params_from_numpy(p), CFG, 0.1,
-                    torch.tensor(w), structured=False)
+    j = vm(lambda zz, pp, pr, ll: jcond.build(
+        zz, pp, JCFG, pr, jnp.asarray(w), lam_soft=ll, soft=soft))(
+        jnp.asarray(z), jparams(p), jnp.asarray(prox), jnp.asarray(lam))
+    t = tcond.build(torch.tensor(z), convert.params_from_numpy(p), CFG,
+                    torch.tensor(prox), torch.tensor(w),
+                    lam_soft=torch.tensor(lam), soft=soft)
+    assert t.C_blk is None and t.d_blk is None and j.C_blk is None
+    assert tuple(t.C.shape) == (B, tprob.num_constraints(CFG) - 20 * (
+        CFG.N + 1) + 6 * CFG.N + (CFG.N + 1 if soft else 0),
+        32 * CFG.N + (CFG.N + 1 if soft else 0))
+    for name in ("H", "g", "C", "d", "E", "row_scale"):
+        a, b = getattr(t, name), getattr(j, name)
+        scale = max(1.0, float(np.abs(np.asarray(b)).max()))
+        close(a, b, tol=TOL * scale)
+
+
+def test_condense_dense_form_not_ported():
+    """The name is from when the dense form raised NotImplementedError.  It
+    is ported: build's defaults (structured=False, no multipliers) give the
+    dense form, equal to JAX's with the same defaults."""
+    p, z, w, lam, prox = _qp_inputs(4)
+    t = tcond.build(torch.tensor(z), convert.params_from_numpy(p), CFG, 0.1,
+                    torch.tensor(w))
+    j = vm(lambda zz, pp: jcond.build(zz, pp, JCFG, 0.1, jnp.asarray(w)))(
+        jnp.asarray(z), jparams(p))
+    assert t.C_blk is None
+    for name in ("H", "g", "C", "d"):
+        a, b = getattr(t, name), getattr(j, name)
+        close(a, b, tol=TOL * max(1.0, float(np.abs(np.asarray(b)).max())))
+
+
+@pytest.mark.parametrize("psd", [True, False])
+def test_soft_row_hessian(psd):
+    """The dense soft-row Hessian (convexified or exact) against JAX's, and
+    the convexified one positive semidefinite."""
+    p, _, _, lam, _ = _qp_inputs(5)
+    j = vm(lambda ll, pp: jcond.soft_row_hessian(ll, pp, JCFG, psd=psd))(
+        jnp.asarray(lam), jparams(p))
+    t = tcond.soft_row_hessian(torch.tensor(lam),
+                               convert.params_from_numpy(p), CFG, psd=psd)
+    assert tuple(t.shape) == (B, CFG.n_z, CFG.n_z)
+    close(t, j, tol=TOL * max(1.0, float(np.abs(np.asarray(j)).max())))
+    ew = torch.linalg.eigvalsh(t)
+    if psd:
+        assert float(ew.min()) > -1e-9
+    else:
+        assert float(ew.min()) < -1e-3     # the exact Hessian is indefinite
+
+
+def test_condense_structured_matches_dense():
+    """tests/test_condense.py::test_structured_build_matches_dense on the
+    port, f64: the structured pieces, reassembled in the dense row order,
+    equal the dense build (random base points, with multipliers), and the
+    interior-point solves of both forms of the landing-tick QP agree."""
+    p, z, w, lam, prox = _qp_inputs(6)
+    N, nU = CFG.N, 32 * CFG.N
+    args = (torch.tensor(z), convert.params_from_numpy(p), CFG,
+            torch.tensor(prox), torch.tensor(w))
+    qpd = tcond.build(*args, lam_soft=torch.tensor(lam), soft=False)
+    qps = tcond.build(*args, lam_soft=torch.tensor(lam), soft=False,
+                      structured=True)
+
+    def reassembled(qps):
+        rows, dvals = [], []
+        for r0, nr in ((0, 16), (16, 16), (32, 4), (36, 4)):
+            blk = qps.C.new_zeros(qps.C.shape[0], N, nr, nU)
+            for i in range(N):
+                blk[:, i, :, 32 * i:32 * i + 24] = \
+                    qps.C_blk[:, i, r0:r0 + nr]
+            rows.append(blk.reshape(blk.shape[0], N * nr, nU))
+            dvals.append(qps.d_blk[:, :, r0:r0 + nr].reshape(blk.shape[0],
+                                                             -1))
+        return (torch.cat([qps.C[:, :2 * N + 1], *rows,
+                           qps.C[:, 2 * N + 1:]], 1),
+                torch.cat([qps.d[:, :2 * N + 1], *dvals,
+                           qps.d[:, 2 * N + 1:]], 1))
+
+    C_re, d_re = reassembled(qps)
+    np.testing.assert_allclose(C_re.numpy(), qpd.C.numpy(), rtol=0,
+                               atol=1e-10)
+    np.testing.assert_allclose(d_re.numpy(), qpd.d.numpy(), rtol=0,
+                               atol=1e-10)
+    scale = float(qpd.H.abs().max())
+    np.testing.assert_allclose(qps.H.numpy(), qpd.H.numpy(), rtol=0,
+                               atol=1e-12 * scale)
+    np.testing.assert_allclose(qps.g.numpy(), qpd.g.numpy(), rtol=0,
+                               atol=1e-12 * float(qpd.g.abs().max()))
+
+    lp = _landing_params()
+    state = tsqp.init_solver_state(CFG, lp.x0, mass=lp.mass)
+    U = tsqp.prep_warmstart(state, lp, CFG)
+    zl = tprob.join_z(tsqp._rollout_X(lp.x0, U, lp, CFG), U)
+    w1 = torch.ones(nU, dtype=torch.float64)
+    qpd = tcond.build(zl, lp, CFG, 0.1, w1, soft=False)
+    qps = tcond.build(zl, lp, CFG, 0.1, w1, soft=False, structured=True)
+    C_re, _ = reassembled(qps)
+    np.testing.assert_allclose(C_re.numpy(), qpd.C.numpy(), rtol=0,
+                               atol=1e-10)
+    st = tpdip.PDIPSettings(iters=25)
+    rd = tpdip.pdip_solve(qpd.H, qpd.g, qpd.C, qpd.d, st)
+    rs = tpdip.pdip_solve(qps.H, qps.g, qps.C, qps.d, st, C_blk=qps.C_blk,
+                          d_blk=qps.d_blk)
+    vmax = float(rd.v.abs().max())
+    np.testing.assert_allclose(rs.v.numpy(), rd.v.numpy(), rtol=0,
+                               atol=1e-6 * vmax)
+    assert abs(float(rd.r_prim[0]) - float(rs.r_prim[0])) < 1e-8
+
+
+def test_pdip_settings_fields_and_defaults():
+    """The port's PDIPSettings: JAX's fields, in JAX's order, with JAX's
+    defaults (PDIPSettings(explicit_inv=False) is valid in both)."""
+    assert tpdip.PDIPSettings._fields == jpdip.PDIPSettings._fields
+    assert tpdip.PDIPSettings._field_defaults == \
+        jpdip.PDIPSettings._field_defaults
+    assert tpdip.PDIPSettings(explicit_inv=False).inv_method == "blocked"
+
+
+def _qp320(seed):
+    """A strictly convex QP at the MPC's size, n = 320 (the blocked
+    inverse's 5 tiles), m = 400 rows, f64."""
+    rng = np.random.default_rng(seed)
+    n, m = 320, 400
+    A = rng.normal(size=(B, n, n)) / np.sqrt(n)
+    H = A @ np.swapaxes(A, 1, 2) + np.eye(n)
+    g = rng.normal(size=(B, n)) * 10.0
+    C = rng.normal(size=(B, m, n)) / np.sqrt(n)
+    d = rng.uniform(0.1, 1.0, size=(B, m))
+    return H, g, C, d
+
+
+@pytest.mark.parametrize("kw", [dict(explicit_inv=False),
+                                dict(inv_method="xla")],
+                         ids=["substitution", "library_inverse"])
+def test_pdip_solve_other_newton_paths(kw):
+    """The two Newton paths besides the blocked inverse, at n = 320 and the
+    solver's 8 iterations (mu ~6e-7): against JAX's same path at 1e-8, and
+    against the port's blocked path.  (Past ~10 iterations this QP's f64
+    endgame turns rounding differences of 1e-16 into 1e-5 on lam, in either
+    package and on every path.)"""
+    qp = _qp320(8)
+    j = vm(lambda *a: jpdip.pdip_solve(*a, jpdip.PDIPSettings(iters=8,
+                                                              **kw)))(
+        *map(jnp.asarray, qp))
+    t = tpdip.pdip_solve(*map(torch.tensor, qp),
+                         tpdip.PDIPSettings(iters=8, **kw))
+    for name in j._fields:
+        close(getattr(t, name), getattr(j, name), tol=1e-8)
+    blocked = tpdip.pdip_solve(*map(torch.tensor, qp),
+                               tpdip.PDIPSettings(iters=8))
+    for name in ("v", "lam"):
+        close(getattr(t, name), getattr(blocked, name), tol=1e-8)
+    assert float(t.r_prim.max()) < 1e-8 and float(t.mu.max()) < 1e-6
+
+
+def test_pdip_library_inverse_gives_nan_where_not_pd():
+    """A scenario whose Newton matrix is not positive definite gets NaN from
+    the library factorization (as JAX's cho_factor reports it), and the
+    guarded update freezes it; the others solve."""
+    H, g, C, d = _qp320(9)
+    H[1] = -np.eye(320)
+    for kw in (dict(explicit_inv=False), dict(inv_method="xla")):
+        t = tpdip.pdip_solve(*map(torch.tensor, (H, g, C, d)),
+                             tpdip.PDIPSettings(iters=4, **kw))
+        assert torch.equal(t.v[1], torch.zeros(320, dtype=torch.float64))
+        assert torch.isfinite(t.v[[0, 2]]).all()
+        assert float(t.r_prim[[0, 2]].max()) < 1e-3
 
 
 def test_pdip_solve_small_qp():

@@ -198,3 +198,76 @@ def test_dryrun_one_device_on_the_cpu(dtype):
     """Lane independence under a permutation (bit for bit) and the device
     reductions against host reductions, on the tiny heterogeneous sweep."""
     tentry.dryrun_one_device("cpu", dtype)
+
+
+def test_trace_load_round_trip_and_jax_saved(tmp_path):
+    """runtime.trace.load: the port's saved trace reads back field by field
+    (nested names joined by '/'), as the JAX package's load reads it; and a
+    trace the JAX package saved reads back in the port."""
+    from cmpc_tpu.runtime import trace as jtrace
+    from cmpc_tpu_torch.runtime import trace as ttrace
+
+    _, tr = tcl.rollout(nominal_scenario(CFG, device="cpu"), CFG, T_sim=3)
+    p = str(tmp_path / "port" / "trace.npz")
+    ttrace.save(p, {"tr": tr, "note": torch.arange(3)}, meta={"cmd": "t"})
+    got = ttrace.load(p)
+    assert set(got) == {f"tr/{k}" for k in tr._fields} | {"note"}
+    for k in tr._fields:
+        np.testing.assert_array_equal(got[f"tr/{k}"],
+                                      getattr(tr, k).numpy())
+    for k, v in jtrace.load(p).items():
+        np.testing.assert_array_equal(v, got[k])
+
+    rng = np.random.default_rng(0)
+    jtr = {"com_pos": jnp.asarray(rng.normal(size=(5, 3))),
+           "solver": {"z": jnp.asarray(rng.normal(size=(5, 7)))}}
+    q = str(tmp_path / "jax" / "trace.npz")
+    jtrace.save(q, jtr)
+    got = ttrace.load(q)
+    assert set(got) == {"com_pos", "solver/z"}
+    np.testing.assert_array_equal(got["solver/z"],
+                                  np.asarray(jtr["solver"]["z"]))
+
+
+def test_plots_plot_all(tmp_path):
+    """The four dashboards from one scenario's row of a trace, tensors
+    taken as they are."""
+    pytest.importorskip("matplotlib")
+    from cmpc_tpu_torch.runtime import plots
+
+    _, tr = tcl.rollout(nominal_scenario(CFG, device="cpu"), CFG, T_sim=3)
+    row0 = {k: v[0] for k, v in tr._asdict().items()}
+    paths = plots.plot_all(row0, str(tmp_path / "plots"),
+                           plan_pos=torch.zeros(4, 3))
+    assert [os.path.basename(p) for p in paths] == [
+        "com.png", "momentum.png", "theta.png", "footsteps.png"]
+    for p in paths:
+        with open(p, "rb") as f:
+            assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+
+
+def test_cli_walk_plots(tmp_path):
+    """`walk --plots --device cpu --ticks 5` writes the trace and the four
+    dashboards into --out."""
+    pytest.importorskip("matplotlib")
+    import subprocess
+    out = subprocess.run(
+        [sys.executable, "-m", "cmpc_tpu_torch", "walk", "--device", "cpu",
+         "--ticks", "5", "--plots", "--out", str(tmp_path)],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr
+    for name in ("trace.npz", "com.png", "momentum.png", "theta.png",
+                 "footsteps.png"):
+        assert (tmp_path / name).exists(), name
+
+
+def test_plots_without_matplotlib_name_it(monkeypatch):
+    """Where matplotlib is missing a plot raises an
+    ImportError that names it."""
+    from cmpc_tpu_torch.runtime import plots
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
+        plots.plot_theta({"theta_hat": np.zeros((3, 3))})

@@ -1,6 +1,8 @@
 """Large-scale Monte-Carlo robustness sweep of the PyTorch/CUDA port: a
 randomized batch of full-length walks (parallel/mesh.make_batch, seed 7)
-on one GPU, with the statistics reduced on the device.
+on one GPU, with the statistics reduced on the device; under torchrun
+sharded over its ranks (one per card), rank 0 writing the JSON with the
+per-scenario rows gathered in global order.
 
 The walk runs as CHUNKED rollouts (closed_loop.rollout t0/carry_in): the
 LoopCarry (plant + live plan + solver warm start) flows between chunks and
@@ -11,6 +13,7 @@ Writes the JSON to --out (default runs/sweep_torch.json) and prints it.
 Run from the repository root:
     python tools/run_sweep_torch.py [n_scenarios] [T_ticks] [chunk]
                                     [--device cuda] [--out PATH]
+    torchrun --nproc-per-node=K tools/run_sweep_torch.py ...
 """
 
 import argparse
@@ -51,13 +54,15 @@ def survivor_stats(acc: np.ndarray, ticks: int) -> dict:
 
 
 def run(n: int, T: int | None, chunk: int, device="cuda",
-        dtype=torch.float32, cfg=None) -> dict:
-    """Run the sweep; returns the JSON payload."""
+        dtype=torch.float32, cfg=None, mesh=None) -> dict:
+    """Run the sweep; returns the JSON payload.  With a mesh (from
+    parallel/mesh.make_mesh) each rank runs its share of the n scenarios and
+    every rank returns the payload of the whole batch."""
     from cmpc_tpu_torch.config import WalkConfig, resolve_device
     from cmpc_tpu_torch.parallel import mesh as pm
     from cmpc_tpu_torch.plan import timing as tm
 
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -65,24 +70,29 @@ def run(n: int, T: int | None, chunk: int, device="cuda",
     if T is None:
         T = tm.build_timing(cfg).total_ticks
     scenarios = pm.make_batch(cfg, n, seed=SEED, device=device, dtype=dtype)
+    if mesh is not None:
+        scenarios = pm.shard_scenarios(scenarios, mesh)
     on_cuda = device.type == "cuda"
     name = torch.cuda.get_device_name(device) if on_cuda else "cpu"
-    print(f"[sweep] n={n} T={T} chunk={chunk} device={name}",
-          file=sys.stderr, flush=True)
+    ranks = 1 if mesh is None else mesh.world_size
+    rank = 0 if mesh is None else mesh.rank
+    print(f"[sweep] n={n} T={T} chunk={chunk} device={name} rank={rank} "
+          f"of {ranks}", file=sys.stderr, flush=True)
 
     t0_wall = time.perf_counter()
 
     def on_chunk(k, n_chunks):
-        print(f"[sweep] chunk {k + 1}/{n_chunks} done "
+        print(f"[sweep] rank {rank}: chunk {k + 1}/{n_chunks} done "
               f"({time.perf_counter() - t0_wall:.0f}s)",
               file=sys.stderr, flush=True)
 
-    acc, _, ticks = pm.sweep_chunked(scenarios, cfg, T, chunk, on_chunk)
+    acc, _, ticks = pm.sweep_chunked(scenarios, cfg, T, chunk, on_chunk,
+                                     mesh=mesh)
     if on_cuda:
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0_wall
 
-    return {
+    out = {
         "n_scenarios": n,
         "ticks": ticks,
         "solves": n * ticks,
@@ -97,6 +107,9 @@ def run(n: int, T: int | None, chunk: int, device="cuda",
                  "> 0.3 m; wall time includes planner set-up; chunked "
                  "rollouts (see module docstring)"),
     }
+    if mesh is not None:
+        out.update(ranks=ranks, backend=mesh.backend)
+    return out
 
 
 def main(argv=None):
@@ -109,9 +122,23 @@ def main(argv=None):
                     help="ticks per chunked rollout")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; never falls back)")
+    ap.add_argument("--backend", default=None,
+                    help="under torchrun: the process group's backend "
+                         "(default nccl on cards, gloo on the CPU)")
     ap.add_argument("--out", default=os.path.join("runs", "sweep_torch.json"))
     args = ap.parse_args(argv)
-    payload = run(args.n, args.T, args.chunk, device=args.device)
+    from cmpc_tpu_torch.parallel import mesh as pm
+
+    if pm.under_torchrun():
+        mesh = pm.make_mesh(args.device, args.backend)
+        try:
+            payload = run(args.n, args.T, args.chunk, mesh=mesh)
+        finally:
+            mesh.close()
+        if mesh.rank:
+            return
+    else:
+        payload = run(args.n, args.T, args.chunk, device=args.device)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(payload, f, indent=1)
