@@ -52,9 +52,15 @@ line, and no phase carries on on the CPU):
      finite, fall rate and mean RMSE within 3e-4 of each other, 120
      kernel-1 launches per tick per rank.  With one card both ranks share
      it (gloo), with more each has its own (nccl);
- 11. one JSON line of kernel results, then the final status line.
+ 11. past the end of the gait tables — closed_loop.rollout and
+     wholebody_loop.rollout (WalkConfig(), f32, B=1), each from its initial
+     carry, stepped over ticks pad_ticks - 2 ... pad_ticks + 1: every trace
+     field finite, com_ref at the ticks past the end equal to the tables'
+     last row, 120 launches of chol_inv_tile per tick;
+ 12. the script's total time, one JSON line of kernel results, then the
+     final status line.
 
-Each path of phases 4, 5, 6, 8, 9 and 10 is driven with the kernel launch
+Each path of phases 4, 5, 6, 8, 9, 10 and 11 is driven with the kernel launch
 counters set to 0 just before it and read just after (in phase 10 by each
 rank, in its own process): every launch counted there came from that
 path.  The factor-only kernel has no caller on any path
@@ -63,6 +69,7 @@ that of phase 3.  Needs no JAX and no network; uses one card (or, in
 phase 10, two where there are).
 """
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -85,6 +92,7 @@ T_WALK = 500
 N_SWEEP, T_SWEEP, CHUNK_SWEEP = 256, 700, 100
 T_ISMPC = 500
 T_WB = 300
+T_END = 4                       # phase 11: ticks pad_ticks - 2 ... + 1
 N_ADMM_TIMED = 5
 N_RANKS, T_RANKS = 256, 200     # phase 10(b): phase 6's batch, 200 ticks
 RANKS_LANE_TOL = 1e-10          # phase 10(a), f64: test_cuda_lanes_do_not_mix
@@ -448,6 +456,20 @@ def closed_loop_walk(dev, card):
     if not (err_xy < 0.05 and dz < 0.03 and np.median(r_prim) < 1e-2
             and r_prim.max() < 1.0 and adapted == [261, 361, 461]):
         fail("closed-loop walk leaves the test_closed_loop envelopes")
+    # the rest of test_closed_loop.py's checks on its 500-tick walk
+    fz = tr.forces[0].cpu().numpy().astype(np.float64).reshape(
+        T_WALK, 8, 3)[..., 2].sum(-1)
+    fz_gap = abs(fz[50:].mean() - 40.05 * 9.81)
+    hw = np.linalg.norm(tr.hw[0].cpu().numpy().astype(np.float64), axis=1)
+    phase(f"  |mean fz from tick 50 - m g| {fz_gap:.3f} N (< 30), final "
+          f"com_x {com[-1, 0]:.4f} m (> 0.1), max|hw| {hw.max():.4f} (< 4.0),"
+          f" over 200-269 {hw[200:270].max():.4f} (> 0.3), min from 480 "
+          f"{hw[480:].min():.4f} (< {hw[200:480].max():.4f})")
+    if not (fz_gap < 30.0 and com[-1, 0] > 0.1 and hw.max() < 4.0
+            and hw[200:270].max() > 0.3
+            and hw[480:].min() < hw[200:480].max()):
+        fail("closed-loop walk leaves the test_closed_loop envelopes (force, "
+             "progress or hw)")
     phase(f"  {T_WALK / wall:.2f} ticks/s at B=1 ({wall:.1f} s) on {card}")
     return T_WALK / wall
 
@@ -465,7 +487,7 @@ def sweep_phase(dev, bc, card):
     t0 = time.perf_counter()
     host, acc, ticks = pm.sweep_chunked(
         sc, cfg, T_SWEEP, CHUNK_SWEEP,
-        lambda k, n: phase(f"  chunk {k + 1}/{n} done "
+        lambda k, n, _: phase(f"  chunk {k + 1}/{n} done "
                            f"({time.perf_counter() - t0:.0f} s)"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -594,6 +616,25 @@ def wholebody_walk(dev, bc, card, smi_line):
             and 0.012 < apex < 0.035 and abs(zr[285:].max()) < 0.01
             and zl[200:270].max() < 0.01 and progress > 0.01):
         fail("whole-body walk leaves the test_wholebody_walk envelope")
+    # test_wholebody_walk.py::test_centroidal_plant_hw_cross_validation:
+    # the articulated |hw| against the recorded centroidal walk's
+    spec = importlib.util.spec_from_file_location(
+        "wholebody_envelope_torch",
+        os.path.join(HERE, "tools", "wholebody_envelope_torch.py"))
+    envelope = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(envelope)
+    hw = envelope.hw_figures(row(tr.hw))
+    peak_wb, ratio = hw["hw_peak_200_284"], hw["hw_peak_over_recorded_peak"]
+    say(f"  hw cross-validation: articulated peak over 200-284 {peak_wb:.4f}"
+        f" (0.5 .. 3.0; ratio to the recorded centroidal peak {ratio:.3f}, "
+        f"within 1/2.5 .. 2.5), |hw| at 295 {hw['hw_295']:.4f} "
+        f"({hw['hw_295_over_peak']:.3f} x peak, < 0.6), recorded at 299 "
+        f"{hw['recorded_hw_299_over_peak']:.3f} x its peak (< 0.6)")
+    if not (0.5 < peak_wb < 3.0 and 1 / 2.5 < ratio < 2.5
+            and hw["hw_295_over_peak"] < 0.6
+            and hw["recorded_hw_299_over_peak"] < 0.6):
+        fail("whole-body walk fails test_wholebody_walk's hw "
+             "cross-validation")
     launches = bc.LAUNCHES["chol_inv_tile"]
     per_solve = 5 * cfg.pdip_iters * cfg.sqp_iters
     if launches != per_solve * T_WB:
@@ -602,6 +643,52 @@ def wholebody_walk(dev, bc, card, smi_line):
     say(f"  {T_WB / wall:.3f} whole-body ticks/s at B=1 ({wall:.1f} s, "
           f"{wall / T_WB * 1e3:.1f} ms per tick)")
     return T_WB / wall
+
+
+def table_end_phase(dev, bc):
+    """Phase 11: both loops stepped across the end of the gait tables, where
+    every table read takes the last row, as the JAX package's gathers do."""
+    import torch
+    from cmpc_tpu_torch.config import WalkConfig, nominal_scenario
+    from cmpc_tpu_torch.rbd.urdf import load_hrp4
+    from cmpc_tpu_torch.sim import closed_loop, wholebody_loop
+
+    cfg = WalkConfig()
+    P = cfg.pad_ticks
+    per_solve = 5 * cfg.pdip_iters * cfg.sqp_iters
+    sc = nominal_scenario(cfg, device=dev, dtype=torch.float32)
+    model = load_hrp4(payload=False)
+    loops = (("closed_loop", lambda **kw: closed_loop.rollout(sc, cfg, **kw)),
+             ("wholebody_loop",
+              lambda **kw: wholebody_loop.rollout(model, sc, cfg, **kw)))
+    t_phase = time.perf_counter()
+    for name, roll in loops:
+        carry, _ = roll(return_tick=True)
+        n0 = bc.LAUNCHES["chol_inv_tile"]
+        t0 = time.perf_counter()
+        _, tr = roll(T_sim=T_END, t0=P - 2, carry_in=carry)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for field in tr._fields:
+            if not bool(torch.isfinite(getattr(tr, field).float()).all()):
+                fail(f"phase 11: {name} trace field {field} is not finite "
+                     f"past tick {P - 1}")
+        # column 1 is tick P - 1, the tables' last row read in range
+        ref = tr.com_ref[0]
+        if not (torch.equal(ref[2], ref[1]) and torch.equal(ref[3], ref[1])):
+            fail(f"phase 11: {name} com_ref past the end is not the tables' "
+                 f"last row")
+        launches = bc.LAUNCHES["chol_inv_tile"] - n0
+        if launches != per_solve * T_END:
+            fail(f"phase 11: {name} kernel launches {launches} != "
+                 f"{per_solve} x {T_END}")
+        phase(f"  {name}: ticks {P - 2}..{P + T_END - 3} of tables {P} long, "
+              f"trace finite, com_ref past the end = last row "
+              f"{[round(float(x), 4) for x in ref[1]]}, kernel launches "
+              f"{launches} = {per_solve} x {T_END} ({wall:.2f} s)")
+    wall = time.perf_counter() - t_phase
+    phase(f"  phase 11 {wall:.1f} s")
+    return wall
 
 
 def standing_problem(cfg, B, seed, dev):
@@ -939,6 +1026,7 @@ def ranks_phase(smi_line):
 
 
 def main():
+    t_script = time.perf_counter()
     import torch
 
     # phase 1: device
@@ -1045,17 +1133,24 @@ def main():
         fail("phase 10: the parent process launched a tile kernel")
     n_ranks = sum(r["launches"] for r in ranks["runs"])
 
+    # phase 11: both loops past the end of the gait tables
+    end_s, n_end = counted("phase 11 past the end of the tables",
+                           lambda: table_end_phase(dev, bc))
+
+    total_s = time.perf_counter() - t_script
+    phase(f"chip_smoke.py total {total_s:.1f} s (limit 1200 s) [{smi_line}]")
     print(json.dumps({"kernels": [
         {"name": "chol_inv_tile", "route": "cuda",
          "source": "cmpc_tpu_torch/csrc/chol_inv_tile.cu",
          "replaces": "cmpc_tpu/ops/batched_chol.py:141",
          "launches": (n_solve + n_walk + n_sweep + n_wb
-                      + ranks["dryrun_launches"] + n_ranks),
+                      + ranks["dryrun_launches"] + n_ranks + n_end),
          "launches_by_path": {"production_solve": n_solve,
                               "walk": n_walk, "sweep": n_sweep,
                               "wholebody_walk": n_wb, "admm_solve": 0,
                               "dryrun_multichip": ranks["dryrun_launches"],
-                              "sweep_across_ranks": n_ranks},
+                              "sweep_across_ranks": n_ranks,
+                              "past_table_end": n_end},
          **kres["chol_inv_tile"], "library_calls": 2},
         {"name": "chol_tile", "route": "cuda",
          "source": "cmpc_tpu_torch/csrc/chol_tile.cu",
@@ -1073,7 +1168,8 @@ def main():
         "sweep_fall_rate": fall_rate, "sweep_rmse_survivors": rmse_alive,
         "ismpc_ticks_per_s_b1": ismpc_ticks_per_s,
         "wholebody_ticks_per_s_b1": wb_ticks_per_s,
-        "admm_solve_ms_b256": admm_ms, "sweep_across_ranks": ranks}),
+        "admm_solve_ms_b256": admm_ms, "sweep_across_ranks": ranks,
+        "past_table_end_s": end_s, "total_s": total_s}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

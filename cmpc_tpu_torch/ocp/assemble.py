@@ -18,7 +18,7 @@ from cmpc_tpu_torch.consts import const
 from cmpc_tpu_torch.ocp.problem import MPCParams
 from cmpc_tpu_torch.plan.com_ref import ComRef
 from cmpc_tpu_torch.plan.footsteps import FootstepPlan
-from cmpc_tpu_torch.plan.timing import GaitTiming
+from cmpc_tpu_torch.plan.timing import GaitTiming, at, clamp_index
 
 
 class RefArrays(NamedTuple):
@@ -40,18 +40,22 @@ def pack_x0(com_pos, com_vel, hw, theta_hat, pose_l, pose_r,
       cutoff, from the live plan (parity-indexed at t - ss_duration) after;
     * with cfg.x0_swing_from_traj the swing foot tracks its commanded
       trajectory, otherwise it is pinned like a stance foot.
+
+    Past the end of the tables every read takes their last row, as JAX's
+    gathers do.
     """
     t = int(t)
-    if timing.stance_from_table[t]:
-        stance_l = refs.pose_ref_l[:, t, 3:6]
-        stance_r = refs.pose_ref_r[:, t, 3:6]
+    if at(timing.stance_from_table, t):
+        row = clamp_index(t, refs.pose_ref_l.shape[1])
+        stance_l = refs.pose_ref_l[:, row, 3:6]
+        stance_r = refs.pose_ref_r[:, row, 3:6]
     else:
-        stance_l = plan.pos[:, int(timing.stance_left_idx[t])]
-        stance_r = plan.pos[:, int(timing.stance_right_idx[t])]
+        stance_l = plan.pos[:, int(at(timing.stance_left_idx, t))]
+        stance_r = plan.pos[:, int(at(timing.stance_right_idx, t))]
 
     if cfg is not None and cfg.x0_swing_from_traj:
-        foot_l = stance_l if timing.gamma_l[t] > 0.5 else pose_l[:, 3:6]
-        foot_r = stance_r if timing.gamma_r[t] > 0.5 else pose_r[:, 3:6]
+        foot_l = stance_l if at(timing.gamma_l, t) > 0.5 else pose_l[:, 3:6]
+        foot_r = stance_r if at(timing.gamma_r, t) > 0.5 else pose_r[:, 3:6]
     else:
         foot_l, foot_r = stance_l, stance_r
 
@@ -80,8 +84,8 @@ def gather_params(t, x0, refs: RefArrays, timing: GaitTiming,
         rows = slice(None)
     # JAX clamps out-of-range gathers silently where torch would raise:
     # clamp explicitly (only reachable past the end of the padded tables)
-    idx = (t + (1 + ar[:N]) * rate).clip(max=P - 1)           # nodes 1..N
-    gidx = (t + ar * rate).clip(max=P - 1)
+    idx = clamp_index(t + (1 + ar[:N]) * rate, P)             # nodes 1..N
+    gidx = clamp_index(t + ar * rate, P)
     if not isinstance(t, torch.Tensor) and t + N * rate < P:
         idx = slice(t + rate, t + N * rate + 1, rate)   # a view, no copy
     com_ref = torch.cat([refs.com.pos[rows, idx], refs.com.vel[rows, idx],

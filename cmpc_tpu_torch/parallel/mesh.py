@@ -331,11 +331,14 @@ def sweep_chunked(scenarios: Scenario, cfg: WalkConfig, T_sim: int,
     Returns ``(host, dev, ticks)``: the statistics accumulated on the host
     in float64 from the per-chunk fetches ((B, 4) numpy), the same
     accumulated on the device in the working type ((B, 4) tensor), and the
-    ticks run (a whole number of chunks).  ``on_chunk(k, n_chunks)`` is
-    called after each chunk.  With a mesh, `scenarios` is this rank's shard,
-    the accumulators stay per rank through the chunks, and at the end both
-    are gathered: every rank returns the (n, 4) rows in global order, whose
-    :func:`reduce_stats` is the sweep's."""
+    ticks run (a whole number of chunks).  ``on_chunk(k, n_chunks, host)``
+    is called after each chunk with the host accumulator so far (this
+    rank's rows; read it, do not keep it).  With a mesh, `scenarios` is
+    this rank's shard, the accumulators stay per rank through the chunks,
+    and at the end both are gathered: every rank returns the (n, 4) rows
+    in global order, whose :func:`reduce_stats` is the sweep's.  A last
+    chunk that runs past the gait tables' end reads their last row, as the
+    JAX package's chunked runner does."""
     _check_shard(scenarios, mesh)
     n_chunks = (T_sim + chunk - 1) // chunk
     carry, _ = closed_loop.rollout(scenarios, cfg, return_tick=True)
@@ -354,7 +357,7 @@ def sweep_chunked(scenarios: Scenario, cfg: WalkConfig, T_sim: int,
         host[:, [0, 2, 3]] += s[:, [0, 2, 3]]
         host[:, 1] = np.maximum(host[:, 1], s[:, 1])
         if on_chunk is not None:
-            on_chunk(k, n_chunks)
+            on_chunk(k, n_chunks, host)
     if mesh is not None:
         host, dev = gather_rows(host, mesh), gather_rows(dev, mesh)
     return host, dev, n_chunks * chunk

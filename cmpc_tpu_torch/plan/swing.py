@@ -16,7 +16,7 @@ import torch
 
 from cmpc_tpu_torch.config import WalkConfig
 from cmpc_tpu_torch.plan.footsteps import FootstepPlan, initial_feet_poses
-from cmpc_tpu_torch.plan.timing import GaitTiming
+from cmpc_tpu_torch.plan.timing import GaitTiming, at
 
 
 class FeetRef(NamedTuple):
@@ -77,12 +77,13 @@ def _swing_factors(T: int, t_in: int, step_height: float, delta: float):
 
 def feet_ref_at(t: int, plan: FootstepPlan, cfg: WalkConfig,
                 timing: GaitTiming, foot_y) -> FeetRef:
-    """Foot pose/vel/acc references at tick t (a Python int)."""
+    """Foot pose/vel/acc references at tick t (a Python int; past the
+    tables' end, their last row)."""
     t = int(t)
-    s = int(timing.step_idx[t])
-    t_in = int(timing.t_in_step[t])
-    in_ds = bool(timing.is_ds[t])
-    support_is_left = bool(timing.foot_is_left[s])
+    s = int(at(timing.step_idx, t))
+    t_in = int(at(timing.t_in_step, t))
+    in_ds = bool(at(timing.is_ds, t))
+    support_is_left = bool(at(timing.foot_is_left, s))
     S = timing.num_steps
     s_prev = min(max(s - 1, 0), S - 1)
     s_next = min(max(s + 1, 0), S - 1)
@@ -107,7 +108,7 @@ def feet_ref_at(t: int, plan: FootstepPlan, cfg: WalkConfig,
         # f32 values as Python floats: exact in either working dtype, and
         # no host-to-device copy
         fac = {k: v.item() for k, v in _swing_factors(
-            int(timing.ss[s]), t_in, cfg.step_height, delta).items()}
+            int(at(timing.ss, s)), t_in, cfg.step_height, delta).items()}
         d = target_pose - start_pose
         swing_pose = start_pose + d * fac["pos"]
         swing_vel = d * fac["vel"] / delta

@@ -43,6 +43,22 @@ class GaitTiming:
         return len(self.ss)
 
 
+def clamp_index(i, n: int):
+    """Index ``i`` (a Python int, or a numpy or torch integer array) clamped
+    to ``n - 1``: the row that JAX's gather reads for an index past the end
+    of a table of ``n`` rows.  The loops run on past the padded tables'
+    last tick, as the JAX package's do."""
+    if isinstance(i, (int, np.integer)):
+        return min(int(i), n - 1)
+    return i.clip(max=n - 1)
+
+
+def at(table, i):
+    """``table[i]`` along the leading axis, ``i`` clamped by
+    :func:`clamp_index`."""
+    return table[clamp_index(i, len(table))]
+
+
 def _parity_pair(idx: np.ndarray, first_swing: str):
     """Contact-reference plan indices for (left, right) at step `idx`
     (footstep_planner_vertices.py:106-147)."""

@@ -4,6 +4,9 @@
 The tick loop is a Python loop; every scenario of the batch shares the
 tick t, so the static gait tables are read on the host and only
 per-scenario quantities (state, plan, pushes, payload) live in tensors.
+Past the tables' last tick every read takes their last row, as JAX's
+clamped gathers do; the push window and the payload onset compare the
+tick itself.
 Footstep adaptation writes the MPC's terminal swing-foot position into
 the carried plan at the statically known event ticks.
 """
@@ -20,6 +23,7 @@ from cmpc_tpu_torch.ocp import assemble, problem
 from cmpc_tpu_torch.ops import sqp
 from cmpc_tpu_torch.plan import com_ref as com_ref_mod
 from cmpc_tpu_torch.plan import footsteps, swing, timing as timing_mod
+from cmpc_tpu_torch.plan.timing import at, clamp_index
 from cmpc_tpu_torch.sim.plant import PlantState, plant_step
 
 
@@ -93,7 +97,7 @@ def rollout(scenario: Scenario, cfg: WalkConfig, T_sim: int | None = None,
     else:
         carry = carry_in
 
-    N = cfg.N
+    N, P = cfg.N, cfg.pad_ticks
 
     def tick(carry: LoopCarry, t: int):
         plan = footsteps.FootstepPlan(pos=carry.plan_pos, yaw=plan0.yaw)
@@ -117,13 +121,13 @@ def rollout(scenario: Scenario, cfg: WalkConfig, T_sim: int | None = None,
         com_acc_des = sum_f / sc.mpc_mass[:, None] + gravity
 
         # footstep adaptation at the static event ticks
-        do_adapt = bool(timing.update_event[t]) and cfg.update_contact
+        do_adapt = bool(at(timing.update_event, t)) and cfg.update_contact
         plan_pos = carry.plan_pos
         if do_adapt:
-            new_contact = X[:, N, cm.POS_R] if support_is_left_tbl[t] \
+            new_contact = X[:, N, cm.POS_R] if at(support_is_left_tbl, t) \
                 else X[:, N, cm.POS_L]
             plan_pos = plan_pos.clone()
-            plan_pos[:, int(timing.adapt_target[t])] = new_contact
+            plan_pos[:, int(at(timing.adapt_target, t))] = new_contact
 
         # disturbance window (simulation.py:195-198: t > start, t < end)
         pushing = ((t > sc.push_start) & (t < sc.push_end))[:, None]
@@ -142,8 +146,8 @@ def rollout(scenario: Scenario, cfg: WalkConfig, T_sim: int | None = None,
             impact, -f_impact, 0.0))[:, None]], dim=1)
 
         plant = plant_step(carry.plant, x1[:, cm.P_COM], x1[:, cm.V_COM],
-                           com_acc_des, u0, float(timing.gamma_l[t]),
-                           float(timing.gamma_r[t]),
+                           com_acc_des, u0, float(at(timing.gamma_l, t)),
+                           float(at(timing.gamma_r, t)),
                            feet.pose_l, feet.pose_r, sc.mpc_mass,
                            eff_mass, ext_f, ext_tau, cfg.g,
                            polygon, cfg.world_time_step,
@@ -153,7 +157,7 @@ def rollout(scenario: Scenario, cfg: WalkConfig, T_sim: int | None = None,
         trace = Trace(
             com_pos=carry.plant.com_pos, com_vel=carry.plant.com_vel,
             com_pos_des=x1[:, cm.P_COM], com_acc_des=com_acc_des,
-            com_ref=refs.com.pos[:, t],
+            com_ref=refs.com.pos[:, clamp_index(t, P)],
             hw=carry.plant.hw, hw_des=x1[:, cm.H_W],
             theta_hat=x1[:, cm.THETA],
             pose_l=feet.pose_l, pose_r=feet.pose_r,

@@ -8,7 +8,8 @@ The centroidal closed loop (sim/closed_loop.py) is the fast evaluation
 path; this one exercises every layer including the robot model and the
 whole-body controller.  The tick loop is a Python loop over a batched
 tick; every scenario shares the tick t, so the static gait tables are read
-on the host, as in the centroidal loop.
+on the host, and clamped to their last row past their end, as in the
+centroidal loop.
 
 Status carried over from the JAX package: the pipeline walks through the
 initial double support, the first full step and its landing (err_xy about
@@ -31,6 +32,7 @@ from cmpc_tpu_torch.ops import sqp
 from cmpc_tpu_torch.ops.admm import ADMMSettings
 from cmpc_tpu_torch.plan import com_ref as com_ref_mod
 from cmpc_tpu_torch.plan import footsteps, swing, timing as timing_mod
+from cmpc_tpu_torch.plan.timing import at, clamp_index
 from cmpc_tpu_torch.rbd.urdf import RobotModel
 from cmpc_tpu_torch.wholebody import inverse_dynamics as wbid
 from cmpc_tpu_torch.wholebody import plant as wbplant
@@ -138,7 +140,7 @@ def rollout(model: RobotModel, scenario: Scenario, cfg: WalkConfig,
     else:
         carry = carry_in
 
-    N = cfg.N
+    N, P = cfg.N, cfg.pad_ticks
     a_lp = cfg.world_time_step / hw_filter_tau
     # hw_model is stored in PLANT convention (pack_x0 re-negates per the
     # reference's measurement quirk), so "model" feedback mode feeds the
@@ -183,20 +185,20 @@ def rollout(model: RobotModel, scenario: Scenario, cfg: WalkConfig,
 
         tau, id_res = wbid.joint_torques(
             model, carry.plant.q, carry.plant.qv, desired, st,
-            contact_l=float(timing.gamma_l[t]),
-            contact_r=float(timing.gamma_r[t]),
+            contact_l=float(at(timing.gamma_l, t)),
+            contact_r=float(at(timing.gamma_r, t)),
             joint_sel=joint_sel, foot_size=cfg.foot_size, mu=cfg.mu,
             settings=id_settings, weights=id_weights,
             pos_gains=id_pos_gains, vel_gains=id_vel_gains)
 
         # --- footstep adaptation at the static event ticks ---
-        do_adapt = bool(timing.update_event[t]) and cfg.update_contact
+        do_adapt = bool(at(timing.update_event, t)) and cfg.update_contact
         plan_pos = carry.plan_pos
         if do_adapt:
-            new_contact = X[:, N, cm.POS_R] if support_is_left_tbl[t] \
+            new_contact = X[:, N, cm.POS_R] if at(support_is_left_tbl, t) \
                 else X[:, N, cm.POS_L]
             plan_pos = plan_pos.clone()
-            plan_pos[:, int(timing.adapt_target[t])] = new_contact
+            plan_pos[:, int(at(timing.adapt_target, t))] = new_contact
 
         # --- disturbance + plant step ---
         pushing = ((t > sc.push_start) & (t < sc.push_end))[:, None]
@@ -239,7 +241,8 @@ def rollout(model: RobotModel, scenario: Scenario, cfg: WalkConfig,
 
         trace = WBTrace(
             com_pos=st.com_pos, com_vel=st.com_vel,
-            com_ref=refs.com.pos[:, t], com_pos_des=x1[:, cm.P_COM],
+            com_ref=refs.com.pos[:, clamp_index(t, P)],
+            com_pos_des=x1[:, cm.P_COM],
             hw=st.hw, hw_des=x1[:, cm.H_W], theta_hat=x1[:, cm.THETA],
             pose_l=st.pose_l, pose_r=st.pose_r, tau=tau, zmp=zmp,
             r_prim_mpc=info.r_prim, r_prim_id=id_res.r_prim,

@@ -5,13 +5,16 @@ LOCAL_RANK, MASTER_ADDR, MASTER_PORT), which :func:`run_ranks` sets.
     python tests/_torch_mesh_worker.py sweep
     python tests/_torch_mesh_worker.py dryrun [DEVICE BACKEND DTYPE LANE_TOL]
     python tests/_torch_mesh_worker.py mesh DEVICE BACKEND
+    python tests/_torch_mesh_worker.py fallen
 
 ``sweep``: the small gait of ``__graft_entry__.dryrun_multichip``, n = 8
 scenarios (make_batch, seed 0, f64) over the ranks on the CPU (gloo), 4
 ticks: the all-reduced statistics, this rank's rows, the gathered rows, and
 the gathered rows of the chunked runner.  ``dryrun``:
 ``entry.dryrun_multichip`` (default: the CPU, gloo, f32, bitwise).
-``mesh``: make_mesh alone.  Prints one JSON line.  Imports no JAX.
+``mesh``: make_mesh alone.  ``fallen``: :func:`run_sweep_tool` over the
+ranks (the CPU, gloo), its gathered rows.  Prints
+one JSON line.  Imports no JAX.
 """
 
 import json
@@ -72,6 +75,48 @@ def _rows(per):
     return {k: v.tolist() for k, v in per._asdict().items()}
 
 
+def push_last(b):
+    """The batch b with its last scenario pushed by 600 N from tick 0 on:
+    it falls within the first chunks of the small gait."""
+    b.push_force[-1] = torch.tensor([600.0, 600.0, 0.0],
+                                    dtype=b.push_force.dtype)
+    b.push_start[-1], b.push_end[-1] = 0, 1000
+    return b
+
+
+def run_sweep_tool(mesh=None):
+    """tools/run_sweep_torch.run at the small gait on make_batch's 4
+    scenarios with the last one pushed (:func:`push_last`), 24 ticks in
+    chunks of 6, f64, on the CPU."""
+    import importlib.util
+
+    from cmpc_tpu_torch.config import WalkConfig
+    from cmpc_tpu_torch.parallel import mesh as pmesh
+
+    spec = importlib.util.spec_from_file_location(
+        "run_sweep_torch", os.path.join(ROOT, "tools", "run_sweep_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    make_batch = pmesh.make_batch
+    pmesh.make_batch = lambda cfg, n, **kw: push_last(make_batch(cfg, n,
+                                                                 **kw))
+    try:
+        return tool.run(4, 24, 6, device="cpu", dtype=torch.float64,
+                        cfg=WalkConfig(**SMALL), mesh=mesh)
+    finally:
+        pmesh.make_batch = make_batch
+
+
+def fallen():
+    from cmpc_tpu_torch.parallel import mesh as pmesh
+
+    m = pmesh.make_mesh("cpu")
+    try:
+        return {"rank": m.rank, "rows": run_sweep_tool(m)["rows"]}
+    finally:
+        m.close()
+
+
 def sweep():
     from cmpc_tpu_torch.config import WalkConfig
     from cmpc_tpu_torch.parallel import mesh as pmesh
@@ -119,5 +164,6 @@ def mesh(device, backend):
 
 
 if __name__ == "__main__":
-    mode = {"sweep": sweep, "dryrun": dryrun, "mesh": mesh}[sys.argv[1]]
+    mode = {"sweep": sweep, "dryrun": dryrun, "mesh": mesh,
+            "fallen": fallen}[sys.argv[1]]
     print(json.dumps(mode(*sys.argv[2:])), flush=True)

@@ -25,7 +25,7 @@ from cmpc_tpu.config import Scenario as JScenario, WalkConfig as JCfg
 from cmpc_tpu.parallel import mesh as jmesh
 from cmpc_tpu_torch.config import WalkConfig
 from cmpc_tpu_torch.parallel import mesh as tmesh
-from _torch_mesh_worker import SMALL, run_ranks
+from _torch_mesh_worker import SMALL, run_ranks, run_sweep_tool
 
 # the suite runs several worker processes per host: one intra-op thread
 # each (more only oversubscribes the cores and slows every worker)
@@ -148,7 +148,8 @@ def test_run_sweep_tool_under_torchrun(tmp_path):
     """tools/run_sweep_torch.py under torchrun's variables at 2 ranks, the
     production configuration at 4 scenarios for 4 ticks: rank 0 writes
     --out and prints it, rank 1 neither; its statistics, from the gathered
-    rows, equal a one-process run of the same batch."""
+    rows, and the rows themselves equal a one-process run of the same
+    batch."""
     tool = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
         __file__))), "tools", "run_sweep_torch.py")
     path = tmp_path / "sweep.json"
@@ -162,7 +163,21 @@ def test_run_sweep_tool_under_torchrun(tmp_path):
     spec = importlib.util.spec_from_file_location("run_sweep_torch", tool)
     tool_mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool_mod)
-    assert got["stats"] == tool_mod.run(4, 4, 2, device="cpu")["stats"]
+    one = tool_mod.run(4, 4, 2, device="cpu")
+    assert got["stats"] == one["stats"]
+    assert got["rows"] == one["rows"]
+
+
+def test_run_sweep_tool_gathers_fall_chunks_in_order():
+    """tools/run_sweep_torch.run at 2 ranks on a batch whose last scenario
+    (rank 1's second) falls: every rank's gathered rows, fall_chunk
+    included, equal a one-process run's, in global order."""
+    outs = _json_lines(_ranks(["tests/_torch_mesh_worker.py", "fallen"]))
+    one = run_sweep_tool()["rows"]
+    assert [r["fall_chunk"] for r in one][:3] == [None] * 3
+    assert one[3]["fall_chunk"] is not None
+    for out in outs:
+        assert out["rows"] == one
 
 
 def _mesh(rank, world):

@@ -247,18 +247,58 @@ def test_chunked_runner_equals_one_run():
     assert tmesh.sweep_chunked(sc, CFG, 3, 2)[2] == 4
 
 
-def test_run_sweep_torch_payload_and_all_fallen_guard():
-    """The runner's JSON has the JAX runner's keys; the survivors' figures
-    are None (null) when every scenario fell instead of raising."""
+def test_chunked_runner_overruns_the_tables():
+    """A sweep whose last chunk runs past the end of the gait tables (70
+    ticks here: two chunks of 36 run to tick 71) runs on, as the JAX
+    runner's chunked dispatches do, and gives finite rows."""
+    assert CFG.pad_ticks == 70
+    sc = _tbatch(_numpy_batch(n=2))
+    host, dev, ticks = tmesh.sweep_chunked(sc, CFG, 71, 36)
+    assert ticks == 72 and host.shape == (2, 4)
+    assert np.isfinite(host).all() and torch.isfinite(dev).all()
+
+
+def test_run_sweep_torch_payload_and_all_fallen_guard(monkeypatch):
+    """The runner's JSON has the JAX runner's keys, its dtype, and one row
+    per scenario in global order equal to per_scenario_from_sums of the
+    chunked runner's statistics; each row's fall_chunk is the first chunk
+    whose maximum error passed 0.3 (null for none).  The survivors'
+    figures are None (null) when every scenario fell instead of raising."""
     out = run_sweep_torch.run(2, 4, 2, device="cpu", dtype=torch.float64,
                               cfg=CFG)
-    assert set(out) == {"n_scenarios", "ticks", "solves", "wall_s",
-                        "solves_per_s", "device", "chunk", "stats", "note"}
+    assert set(out) == {"n_scenarios", "seed", "ticks", "solves", "wall_s",
+                        "solves_per_s", "device", "dtype", "chunk", "stats",
+                        "rows", "note"}
     assert out["ticks"] == 4 and out["solves"] == 8
+    assert out["seed"] == run_sweep_torch.SEED
+    assert out["dtype"] == "float64"
     assert set(out["stats"]) == {
         "fall_rate", "rmse_xy_survivors", "max_err_survivors",
         "r_prim_mean_survivors", "lyap_mean_survivors", "err_p50", "err_p95"}
     assert out["stats"]["fall_rate"] == 0.0
+    host, _, _ = tmesh.sweep_chunked(
+        tmesh.make_batch(CFG, 2, seed=run_sweep_torch.SEED, device="cpu",
+                         dtype=torch.float64), CFG, 4, 2)
+    per = tmesh.per_scenario_from_sums(host, 4)
+    assert [r["fall_chunk"] for r in out["rows"]] == [None, None]
+    for name in ("rmse", "max_err", "lyap", "r_prim"):
+        assert [r[name] for r in out["rows"]] == getattr(per, name).tolist()
+
+    # a batch with a falling scenario (1: a 600 N push from tick 0 on)
+    f = _numpy_batch()
+    f["push_force"][1] = [600.0, 600.0, 0.0]
+    f["push_start"][1], f["push_end"][1] = 0, 1000
+    monkeypatch.setattr(tmesh, "make_batch", lambda *a, **k: _tbatch(f))
+    fell = run_sweep_torch.run(4, T_LANES, 6, device="cpu",
+                               dtype=torch.float64, cfg=CFG)
+    _, tr = tcl.rollout(_tbatch(f), CFG, T_LANES)
+    err = torch.linalg.vector_norm(tr.com_pos[..., :2] - tr.com_ref[..., :2],
+                                   dim=-1).numpy()
+    first = [int(np.argmax(e > 0.3)) // 6 if (e > 0.3).any() else None
+             for e in err]
+    assert first[1] is not None and first.count(None) == 3
+    assert [r["fall_chunk"] for r in fell["rows"]] == first
+    assert fell["stats"]["fall_rate"] == 0.25
     acc = np.array([[4.0, 0.5, 1.0, 1.0], [9.0, 0.9, 2.0, 2.0]])
     st = run_sweep_torch.survivor_stats(acc, 10)
     assert st["fall_rate"] == 1.0 and st["err_p50"] == pytest.approx(0.7)
@@ -284,6 +324,120 @@ def test_run_sweep_torch_cli_writes_to_out(tmp_path, capsys, monkeypatch):
                                  .splitlines()[-1])
     assert payload["n_scenarios"] == 2 and payload["ticks"] == 2
     assert payload["chunk"] == 1 and payload["device"] == "cpu"
+    assert payload["dtype"] == "float32" and len(payload["rows"]) == 2
+    # --dtype reaches make_batch
+    asked = []
+    make_batch = tmesh.make_batch
+    monkeypatch.setattr(tmesh, "make_batch", lambda *a, **k: (
+        asked.append(k["dtype"]), make_batch(*a, **k))[1])
+    run_sweep_torch.main(["2", "2", "1", "--device", "cpu", "--dtype",
+                          "float64", "--out", str(out)])
+    assert asked == [torch.float64]
+    assert json.loads(out.read_text())["dtype"] == "float64"
+    # --scenarios runs those alone: each row is the whole batch's up to
+    # rounding (the batch's width changes the order of some sums);
+    # --plain-tile swaps the tile step (here for the same plain version
+    # the CPU runs anyway) for the rest of the process
+    from cmpc_tpu_torch.ops import batched_chol as bc
+    kernel_step = bc.chol_inv_tile_into
+    monkeypatch.setattr(bc, "chol_inv_tile_into", kernel_step)
+    whole = json.loads(out.read_text())["rows"][1]
+    run_sweep_torch.main(["2", "2", "1", "--device", "cpu", "--dtype",
+                          "float64", "--scenarios", "1", "--plain-tile",
+                          "--out", str(out)])
+    sub = json.loads(out.read_text())
+    assert sub["scenarios"] == [1] and sub["plain_tile"] is True
+    assert len(sub["rows"]) == 1 and sub["rows"][0]["fall_chunk"] is None
+    for name in ("rmse", "max_err", "lyap", "r_prim"):
+        assert sub["rows"][0][name] == pytest.approx(whole[name], rel=TOL)
+    assert bc.chol_inv_tile_into is not kernel_step
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_sweep_torch.main(["2", "2", "1", "--out", str(out)])
+
+
+def test_sweep_rows_jax_reruns_the_fallen_scenarios(x64, tmp_path, capsys):
+    """tools/sweep_rows_jax.py on two port runs of the production batch (4
+    scenarios, 2 chunks of 1 tick, f64): it reruns the scenarios that fell
+    in either run (here marked by hand: 1 in the first at chunk 0, 3 in the
+    second at chunk 1) for the chunks up to the latest fall, and its
+    maximum errors match the port's f64 run at 1e-6 relative."""
+    import json
+    spec = importlib.util.spec_from_file_location(
+        "sweep_rows_jax", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tools", "sweep_rows_jax.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    out = run_sweep_torch.run(4, 2, 1, device="cpu", dtype=torch.float64)
+    a, b = json.loads(json.dumps(out)), json.loads(json.dumps(out))
+    a["rows"][1].update(max_err=0.5, fall_chunk=0)
+    b["rows"][3].update(max_err=0.4, fall_chunk=1)
+    paths = [tmp_path / "a.json", tmp_path / "b.json"]
+    for p, run in zip(paths, (a, b)):
+        p.write_text(json.dumps(run))
+    (tmp_path / "c.json").write_text(json.dumps(dict(b, seed=b["seed"] + 1)))
+    with pytest.raises(ValueError, match="same whole batch"):
+        tool.main([str(paths[0]), str(tmp_path / "c.json")])
+    assert tool.choose(a["rows"], b["rows"], 32) == [1, 3]
+    assert tool.choose(a["rows"], b["rows"], 1) == [1]
+    tool.main([str(paths[0]), str(paths[1]), "--dtype", "float64"])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["ticks"] == 2 and [r["index"] for r in got["rows"]] == [1, 3]
+    assert got["rows"][0]["port_a"]["fall_chunk"] == 0
+    assert got["rows"][1]["port_b"]["fall_chunk"] == 1
+    for r in got["rows"]:
+        assert r["jax"]["fall_chunk"] is None
+        want = out["rows"][r["index"]]["max_err"]
+        assert want > 0.0
+        assert abs(r["jax"]["max_err"] - want) <= TOL * want, r
+
+
+def test_step_parity_tools_hold_a_sweep_scenario(x64, tmp_path, capsys,
+                                                 monkeypatch):
+    """tools/step_parity_jax.py records the nominal walk and scenario 34 of
+    the production sweep's batch for 3 ticks in f64; tools/step_parity_torch.py
+    steps the port from each recorded carry and lands within the tolerance
+    of JAX's next one, with the kernel's step and with the plain one (the
+    same on the CPU).  The recorded trace is the envelope tool's input.
+    tools/tile_accuracy_torch.py holds each tile step against f64."""
+    import json
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), "tools", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    record, step = load("step_parity_jax"), load("step_parity_torch")
+    record.main(["nominal,34", "--dtype", "float64", "--ticks", "3",
+                 "--every", "2", "--out", str(tmp_path)])
+    with np.load(tmp_path / "carries.npz") as z:
+        assert z["ticks"].tolist() == [0, 2]
+        assert z["before/plant/com_pos"].shape == (2, 2, 3)
+        assert [str(r) for r in z["rows"]] == ["nominal", "34"]
+    with np.load(tmp_path / "34.npz") as tr:
+        assert tr["com_pos"].shape == (3, 3)
+    from cmpc_tpu_torch.ops import batched_chol as bc
+    monkeypatch.setattr(bc, "chol_inv_tile_into", bc.chol_inv_tile_into)
+    for plain in (False, True):
+        step.main([str(tmp_path / "carries.npz"), "--device", "cpu"]
+                  + ["--plain-tile"] * plain)
+        got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert got["ticks_stepped"] == 2 and got["launches"] == 0
+        assert got["plain_tile"] is plain
+        assert [r["row"] for r in got["rows"]] == ["nominal", "34"]
+        for r in got["rows"]:
+            assert r["first_over_tol"] is None
+            assert set(r["max_diff"]) == {"r_prim", "plan_pos", "com_pos",
+                                          "com_vel", "hw"}
+            assert max(r["max_diff"].values()) <= TOL
+    # the tile-accuracy tool on the same carries: on the CPU the "kernel"
+    # is the plain version, and both agree with f64 on these tiles
+    load("tile_accuracy_torch").main([str(tmp_path / "carries.npz"),
+                                      "--device", "cpu"])
+    acc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert acc["tiles"] == 2 * 120 * 2 and acc["f64_not_pd"] == 0
+    assert acc["L_kernel"] == acc["L_ref"] and acc["X_kernel"] == acc["X_ref"]
+    assert acc["X_ref"]["p100"] <= 1e-12

@@ -498,8 +498,10 @@ def test_envelope_tool_reads_a_saved_trace(tmp_path):
     ref = np.stack([0.001 * t, np.zeros(T), np.full(T, 0.72)], 1)
     pose_r = np.zeros((T, 6))
     pose_r[200:270, 5] = 0.02 * np.sin(np.pi * (t[200:270] - 200) / 70)
+    hw = np.zeros((T, 3))
+    hw[:, 1] = np.where(t < 250, 0.01 * t, 2.5 - 0.1 * (t - 250))
     tr = dict(com_pos=com, com_ref=ref, pose_r=pose_r,
-              pose_l=np.zeros((T, 6)), r_prim_id=np.full(T, 3e-5))
+              pose_l=np.zeros((T, 6)), r_prim_id=np.full(T, 3e-5), hw=hw)
     np.savez(tmp_path / "trace.npz", **{k: v[None] for k, v in tr.items()})
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run(
@@ -516,6 +518,13 @@ def test_envelope_tool_reads_a_saved_trace(tmp_path):
     assert fig["right_sole_apex_200_269"] == pytest.approx(
         pose_r[:, 5].max(), abs=1e-12)
     assert fig["progress_from_150"] == pytest.approx(0.149, abs=1e-12)
+    # |hw| peaks at 2.5 (tick 250) and is 2.5 - 0.1 * 45 = -2.0 at 295
+    assert fig["hw_peak_200_284"] == pytest.approx(2.5, abs=1e-12)
+    assert fig["hw_295_over_peak"] == pytest.approx(0.8, abs=1e-12)
+    rec = np.linalg.norm(np.load(os.path.join(
+        root, "assets", "walk_x0.npz"))["x0"][:300, 6:9], axis=1)
+    assert fig["hw_peak_over_recorded_peak"] == pytest.approx(
+        2.5 / rec[250:285].max(), abs=1e-12)
     assert set(fig["bounds"]) <= set(fig)
 
 

@@ -1,6 +1,7 @@
 """The first-step figures of a whole-body walk: the quantities that
 tests/test_wholebody_walk.py bounds (and chip_smoke.py's whole-body phase
-holds the card to), printed as one JSON object.
+holds the card to), its hw cross-validation against the recorded
+centroidal walk (assets/walk_x0.npz) included, printed as one JSON object.
 
 Either runs the port's nominal whole-body walk (sim/wholebody_loop.rollout
 on HRP-4, no push, B = 1) on the given device in the given precision:
@@ -27,7 +28,27 @@ import numpy as np
 BOUNDS = {"err_xy_to_tick_270": "< 0.03", "err_xy_max": "< 0.09",
           "com_z_dev_max": "< 0.03", "right_sole_apex_200_269":
           "0.012 .. 0.035", "right_sole_z_from_285": "< 0.01",
-          "left_sole_max_200_269": "< 0.01", "progress_from_150": "> 0.01"}
+          "left_sole_max_200_269": "< 0.01", "progress_from_150": "> 0.01",
+          "hw_peak_200_284": "0.5 .. 3.0",
+          "hw_peak_over_recorded_peak": "0.4 .. 2.5",
+          "hw_295_over_peak": "< 0.6", "recorded_hw_299_over_peak": "< 0.6"}
+RECORDED = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "assets", "walk_x0.npz")
+
+
+def hw_figures(hw: np.ndarray) -> dict:
+    """test_wholebody_walk.py::test_centroidal_plant_hw_cross_validation's
+    quantities: the articulated |hw| (hw (T, 3), T >= 300) against the
+    recorded centroidal walk's over the first step and its landing."""
+    hw_wb = np.linalg.norm(hw, axis=1)
+    with np.load(RECORDED) as z:
+        hw_cl = np.linalg.norm(z["x0"][:300, 6:9], axis=1)
+    peak_wb, peak_cl = hw_wb[200:285].max(), hw_cl[250:285].max()
+    return {"hw_peak_200_284": float(peak_wb),
+            "hw_peak_over_recorded_peak": float(peak_wb / peak_cl),
+            "hw_295": float(hw_wb[295]),
+            "hw_295_over_peak": float(hw_wb[295] / peak_wb),
+            "recorded_hw_299_over_peak": float(hw_cl[299] / peak_cl)}
 
 
 def figures(tr: dict, h: float) -> dict:
@@ -42,7 +63,8 @@ def figures(tr: dict, h: float) -> dict:
             "right_sole_z_from_285": float(abs(zr[285:].max())),
             "left_sole_max_200_269": float(zl[200:270].max()),
             "progress_from_150": float(com[-1, 0] - com[150, 0]),
-            "r_prim_id_median": float(np.median(tr["r_prim_id"]))}
+            "r_prim_id_median": float(np.median(tr["r_prim_id"])),
+            **hw_figures(tr["hw"])}
 
 
 def main():
