@@ -17,11 +17,16 @@ line, and no phase carries on on the CPU):
      numpy at 1e-12, exact zeros above the diagonal), the two kernels' L
      against each other bit for bit, the strided in-place entry (a
      diagonal block of a (B, 320, 320) tensor written into L and Dinv)
-     against the contiguous call bit for bit, the blocked spd_inverse on
-     an ill-conditioned 320x320 case (rel < 1e-4), and each kernel's time
-     at 1, 256, 1024 and 1280 tiles (f32) beside its bound, with its plain
-     version's and the library calls' at 256 (torch.linalg.cholesky; with
-     solve_triangular for the fused kernel);
+     against the contiguous call bit for bit, each kernel's f32 L against
+     the plain elimination (_chol_tile_loop, the JAX package's _chol_tile
+     step for step) bit for bit (torch.equal; NaN against NaN on tiles
+     that hold one) at 1, 7, 256 and 1280 random SPD tiles and on 40 tiles
+     of the five families of tools/tile_check.py (the rank-deficient,
+     negative-pivot and NaN tiles hit the pivot clamp), the blocked
+     spd_inverse on an ill-conditioned 320x320 case (rel < 1e-4), and
+     each kernel's time at 1, 256, 1024 and 1280 tiles (f32) beside its
+     bound, with its plain version's and the library calls' at 256
+     (torch.linalg.cholesky; with solve_triangular for the fused kernel);
   4. production-state solve — 256 recorded walk states
      (assets/walk_x0.npz) replayed as bench.py does: 12-solve warm chain,
      then one timed batched solve, held to bench.py's accuracy gate;
@@ -201,6 +206,51 @@ def check_strided_entry(bc, dev):
           "nothing outside the block written")
 
 
+def check_bitwise(bc, dev):
+    """Each kernel's f32 factor against the plain elimination
+    (``_chol_tile_loop``, the JAX package's ``_chol_tile`` step for step)
+    on the card, bit for bit: random SPD tiles at B = 1, 7, 256, 1280 and
+    the tile families of ``tools/tile_check.py``.  Where they part, prints
+    the count of differing elements, the largest distance in ulps and the
+    first differing (tile, step, row); fails beyond the double-rounding
+    rate of the plain version's f64 update (1 element per 10^4 tiles, or
+    more than 1 ulp)."""
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "tile_check", os.path.join(HERE, "tools", "tile_check.py"))
+    tile_check = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tile_check)
+    rng = np.random.default_rng(0)
+    fams = tile_check.tile_families(np.random.default_rng(17), 8)
+    batches = [(f"B={B}", random_spd_tiles(rng, B)) for B in (1, 7, 256,
+                                                             1280)]
+    batches.append(("families", np.concatenate(
+        [fams[f] for f in tile_check.FAMILIES])))
+    tiles = n_diff = 0
+    worst = 0
+    for label, M in batches:
+        A = torch.tensor(M, dtype=torch.float32, device=dev)
+        plain = bc._chol_tile_loop(A)
+        for kern, L in (("chol_inv_tile", bc.chol_inv_tile(A)[0]),
+                        ("chol_tile", bc.chol_tile(A))):
+            m = tile_check.bit_mismatch(L, plain)
+            equal = m["n_diff"] == 0
+            tiles += len(M)
+            n_diff += m["n_diff"]
+            worst = max(worst, m["max_ulp"])
+            phase(f"  {label}: {kern} f32 L == plain elimination's: {equal}"
+                  + ("" if equal else
+                     f" ({m['n_diff']} elements differ, up to "
+                     f"{m['max_ulp']} ulp, first (tile, step, row) "
+                     f"{m['first']}, NaN pattern equal "
+                     f"{m['nan_pattern']})"))
+    if worst > 1 or n_diff * 1e4 > tiles:
+        fail(f"kernel f32 factor parts from the plain elimination: "
+             f"{n_diff} elements over {tiles} tiles, up to {worst} ulp")
+    return n_diff, tiles
+
+
 def check_kernels(bc, dev):
     """Phase 3.  Returns per kernel a dict of max_abs_err over the f32
     checks, the times at (256, 64, 64) f32 and, under "by_tiles", the
@@ -262,6 +312,7 @@ def check_kernels(bc, dev):
     phase(f"  spd_inverse ill-conditioned 320x320: rel err {rel:.3e}")
 
     check_strided_entry(bc, dev)
+    check_bitwise(bc, dev)
 
     # Times.  "ms" is the kernel's device time at the sweep's and the
     # production solve's launch shape, (256, 64, 64) f32: launches into
@@ -487,8 +538,8 @@ def sweep_phase(dev, bc, card):
     t0 = time.perf_counter()
     host, acc, ticks = pm.sweep_chunked(
         sc, cfg, T_SWEEP, CHUNK_SWEEP,
-        lambda k, n, _: phase(f"  chunk {k + 1}/{n} done "
-                           f"({time.perf_counter() - t0:.0f} s)"))
+        lambda st, n: phase(f"  chunk {st.chunks}/{n} done "
+                            f"({time.perf_counter() - t0:.0f} s)"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if ticks != T_SWEEP or host.shape != (N_SWEEP, 4):

@@ -39,19 +39,33 @@ LAUNCHES = {"chol_inv_tile": 0, "chol_tile": 0}
 
 def _chol_tile_loop(A):
     """Cholesky of (B, nb, nb) tiles by nb steps of column elimination with
-    pivot sqrt(max(a_jj, 1e-30)) — the JAX package's _chol_tile step for
-    step (and the kernel's algorithm)."""
+    pivot sqrt(max(a_jj, 1e-30)): the JAX package's ``_chol_tile`` step for
+    step, and the kernel's algorithm.  Reads the lower triangle.
+
+    In f32 each element's rank-1 update a - l_i l_k rounds once, as XLA's
+    fused update and the kernel's ``fmaf`` do: the product and the
+    difference are formed in f64 (the product of two f32 values is exact
+    there) and cast to f32 once.  The pivot's square root is taken in f64
+    and cast too, because torch's vectorized f32 square root on the CPU is
+    not correctly rounded (XLA's and the kernel's are).  Either differs
+    from the correctly rounded f32 result only where the f64 value,
+    rounded again, lands on the other side of a tie: about once in 2^28
+    operations.  f64 tiles round the product and the difference each,
+    since torch has no wider type to fuse them in."""
     B, nb, _ = A.shape
+    wide = torch.float64 if A.dtype == torch.float32 else A.dtype
     A = A.clone()
     L = torch.zeros_like(A)
     for j in range(nb):
-        d = A[:, j, j].clamp_min(1e-30).sqrt()
+        d = A[:, j, j].clamp_min(1e-30).to(wide).sqrt().to(A.dtype)
         below = A[:, j + 1:, j] / d[:, None]
         L[:, j, j] = d
         L[:, j + 1:, j] = below
         # the rank-1 update only changes the trailing block (below is zero
         # on rows <= j in the JAX formulation)
-        A[:, j + 1:, j + 1:] -= below[:, :, None] * below[:, None, :]
+        b = below.to(wide)
+        A[:, j + 1:, j + 1:] = (A[:, j + 1:, j + 1:].to(wide)
+                                - b[:, :, None] * b[:, None, :]).to(A.dtype)
     return L
 
 
@@ -60,14 +74,20 @@ def chol_tile_ref(A):
     (B, nb, nb) SPD tiles with the elimination's pivot clamp
     sqrt(max(a_jj, 1e-30)).  Where every pivot exceeds the clamp the
     clamped elimination IS the Cholesky factor, so those tiles take
-    torch.linalg.cholesky_ex; tiles that hit the clamp (or are not PD) take
-    the step-by-step elimination :func:`_chol_tile_loop`.  Which tiles do
-    is decided tile by tile, so no tile's factor depends on another's."""
+    torch.linalg.cholesky_ex; tiles that hit the clamp (or are not PD), and
+    those alone, take the step-by-step elimination :func:`_chol_tile_loop`,
+    whose f32 factor is the JAX package's and the kernel's bit for bit.
+    Which tiles do is decided tile by tile, so no tile's factor depends on
+    another's.  The clean tiles' LAPACK factor is the one place where this
+    version's f32 arithmetic still differs from the JAX package's tile
+    step, in the last bits: the elimination costs ~50x LAPACK's call on a
+    single tile on the CPU, and most tiles are clean."""
     L, info = torch.linalg.cholesky_ex(A)
     d = torch.diagonal(L, dim1=-2, dim2=-1)
     bad = (info != 0) | ~(d > 1e-15).all(dim=-1)
     if bool(bad.any()):
-        L = torch.where(bad[:, None, None], _chol_tile_loop(A), L)
+        idx = bad.nonzero().squeeze(1)
+        L = L.index_copy(0, idx, _chol_tile_loop(A.index_select(0, idx)))
     return L
 
 

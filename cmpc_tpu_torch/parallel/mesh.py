@@ -320,8 +320,47 @@ def make_batch(cfg: WalkConfig, n: int, seed: int = 0,
     )
 
 
+def replicate(scenarios: Scenario, k: int) -> Scenario:
+    """The rounding replicate `k` of a batch: every scenario's starting CoM
+    height (``init_com[:, 2]``) moved up by `k` ulps of its type
+    (``torch.nextafter``; one ulp of 0.72 m is 5.96e-8 m in float32);
+    k = 0 returns the batch as it is.  The height, not x: x starts at 0,
+    where one ulp is a subnormal (1.4e-45 m) that the loop's first sums
+    absorb.  Replicates of one batch differ only in their rounding
+    histories."""
+    if k < 0:
+        raise ValueError(f"replicate takes k >= 0, got {k}")
+    if k == 0:
+        return scenarios
+    com = scenarios.init_com.clone()
+    z, up = com[:, 2], torch.full_like(com[:, 2], float("inf"))
+    for _ in range(k):
+        z = torch.nextafter(z, up)
+    com[:, 2] = z
+    return scenarios._replace(init_com=com)
+
+
+class SweepState(NamedTuple):
+    """A chunked sweep between two chunks: what :func:`sweep_chunked` needs
+    to go on from there."""
+    chunks: int                    # chunks done
+    carry: closed_loop.LoopCarry   # the loop's carry after them
+    host: np.ndarray               # (B, 4) float64 statistics so far
+    dev: torch.Tensor              # (B, 4) the same on the device
+
+
+def sweep_start(scenarios: Scenario, cfg: WalkConfig) -> SweepState:
+    """The state of a sweep before its first chunk: the loop's initial
+    carry (the planner's set-up) and zero statistics."""
+    carry, _ = closed_loop.rollout(scenarios, cfg, return_tick=True)
+    B = scenarios.init_com.shape[0]
+    return SweepState(0, carry, np.zeros((B, 4)),
+                      scenarios.init_com.new_zeros(B, 4))
+
+
 def sweep_chunked(scenarios: Scenario, cfg: WalkConfig, T_sim: int,
-                  chunk: int, on_chunk=None, mesh: Mesh | None = None):
+                  chunk: int, on_chunk=None, mesh: Mesh | None = None,
+                  state: SweepState | None = None):
     """The sweep as ceil(T_sim / chunk) chunked rollouts chained through
     the loop carry (``rollout(t0=, carry_in=)``), keeping only the reduced
     statistics of each chunk: a full-length trace of a wide batch is never
@@ -331,21 +370,27 @@ def sweep_chunked(scenarios: Scenario, cfg: WalkConfig, T_sim: int,
     Returns ``(host, dev, ticks)``: the statistics accumulated on the host
     in float64 from the per-chunk fetches ((B, 4) numpy), the same
     accumulated on the device in the working type ((B, 4) tensor), and the
-    ticks run (a whole number of chunks).  ``on_chunk(k, n_chunks, host)``
-    is called after each chunk with the host accumulator so far (this
-    rank's rows; read it, do not keep it).  With a mesh, `scenarios` is
+    ticks run (a whole number of chunks).  ``on_chunk(state, n_chunks)``
+    is called after each chunk with the :class:`SweepState` there (this
+    rank's rows; read its host array, do not keep it); where it returns
+    True the sweep stops after that chunk and returns what it has, with
+    the ticks run so far.  With a mesh, `scenarios` is
     this rank's shard, the accumulators stay per rank through the chunks,
     and at the end both are gathered: every rank returns the (n, 4) rows
     in global order, whose :func:`reduce_stats` is the sweep's.  A last
     chunk that runs past the gait tables' end reads their last row, as the
-    JAX package's chunked runner does."""
+    JAX package's chunked runner does.
+
+    `state` (from :func:`sweep_start` or an earlier run's ``on_chunk``)
+    goes on from where it was taken, to the same results bit for bit."""
     _check_shard(scenarios, mesh)
     n_chunks = (T_sim + chunk - 1) // chunk
-    carry, _ = closed_loop.rollout(scenarios, cfg, return_tick=True)
-    B = scenarios.init_com.shape[0]
-    host = np.zeros((B, 4))
-    dev = scenarios.init_com.new_zeros(B, 4)
-    for k in range(n_chunks):
+    if state is None:
+        state = sweep_start(scenarios, cfg)
+    k0, carry, host, dev = state
+    host = host.copy()
+    done = n_chunks
+    for k in range(k0, n_chunks):
         carry, tr = closed_loop.rollout(scenarios, cfg, chunk, t0=k * chunk,
                                         carry_in=carry)
         s = chunk_stats(tr)
@@ -356,11 +401,14 @@ def sweep_chunked(scenarios: Scenario, cfg: WalkConfig, T_sim: int,
         s = s.cpu().numpy().astype(np.float64)     # (B, 4): one small fetch
         host[:, [0, 2, 3]] += s[:, [0, 2, 3]]
         host[:, 1] = np.maximum(host[:, 1], s[:, 1])
-        if on_chunk is not None:
-            on_chunk(k, n_chunks, host)
+        if on_chunk is not None and on_chunk(
+                SweepState(k + 1, carry, host, dev), n_chunks) \
+                and k + 1 < n_chunks:
+            done = k + 1
+            break
     if mesh is not None:
         host, dev = gather_rows(host, mesh), gather_rows(dev, mesh)
-    return host, dev, n_chunks * chunk
+    return host, dev, done * chunk
 
 
 def per_scenario_from_sums(acc, ticks: int) -> PerScenarioStats:

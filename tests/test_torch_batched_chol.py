@@ -5,6 +5,9 @@ version against the Pallas kernel it replaces.
 CPU tensors take the plain torch version of the tile kernel; the
 hand-written CUDA kernel is tested on the card by test_torch_cuda.py."""
 
+import importlib.util
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -13,6 +16,13 @@ import torch
 
 from cmpc_tpu.ops import batched_chol as jbc
 from cmpc_tpu_torch.ops import batched_chol as tbc
+
+# tile families and the bitwise comparison (tools/tile_check.py)
+_spec = importlib.util.spec_from_file_location(
+    "tile_check", os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "tile_check.py"))
+tile_check = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(tile_check)
 
 # the suite runs several worker processes per host: one intra-op thread
 # each (more only oversubscribes the cores and slows every worker)
@@ -186,6 +196,63 @@ def test_chol_tile_ref_matches_jax_f64(x64):
     nan = tbc.chol_tile_ref(torch.tensor(M))
     assert torch.isnan(nan[2]).any() and torch.isfinite(nan[[0, 3]]).all()
     assert torch.equal(nan[0], good[0]) and torch.equal(nan[3], good[3])
+
+
+@pytest.mark.parametrize("family", tile_check.FAMILIES)
+def test_f32_tile_step_is_jax_bit_for_bit(family):
+    """In f32 the plain elimination is the JAX package's _chol_tile bit for
+    bit (np.array_equal, NaN matching NaN; the double-rounding allowance of
+    1 ulp on 1 element per 10^4 tiles is not used) on each tile family:
+    well- and ill-conditioned (κ ~ 1e8), rank-deficient (pivots hit the
+    1e-30 clamp), a negative pivot, a NaN.  chol_tile_ref gives that factor
+    to every tile it sends to the elimination, which are all the tiles of
+    the last three families; and a tile's factor in a batch mixed with the
+    other families is its factor alone."""
+    fams = tile_check.tile_families(np.random.default_rng(13), 8)
+    M = fams[family].astype(np.float32)
+    Lj = np.asarray(jbc._chol_tile(jnp.asarray(M)))
+    A = torch.tensor(M)
+    L = tbc._chol_tile_loop(A)
+    assert np.array_equal(L.numpy(), Lj, equal_nan=True), \
+        tile_check.bit_mismatch(L, torch.tensor(Lj))
+    Lc, info = torch.linalg.cholesky_ex(A)
+    routed = (info != 0) | ~(torch.diagonal(Lc, dim1=-2, dim2=-1)
+                             > 1e-15).all(-1)
+    if family in ("clamp", "negative", "nan"):
+        assert bool(routed.all())
+    ref = tbc.chol_tile_ref(A)
+    assert np.array_equal(ref[routed].numpy(), Lj[routed.numpy()],
+                          equal_nan=True)
+    mixed = torch.tensor(np.concatenate(
+        [fams[f][:3] for f in tile_check.FAMILIES]).astype(np.float32))
+    k = tile_check.FAMILIES.index(family)
+    for fn in (tbc._chol_tile_loop, tbc.chol_tile_ref):
+        Lm = fn(mixed)[3 * k:3 * k + 3]
+        for t in range(3):
+            assert tile_check.bit_mismatch(
+                Lm[t], fn(A[t:t + 1])[0])["n_diff"] == 0
+
+
+def test_bit_mismatch_finds_the_first_step():
+    """tile_check.bit_mismatch counts differing elements (NaN against a
+    number counts, NaN against NaN does not), their distance in ulps and
+    the first (tile, step, row) in the elimination's order."""
+    a = torch.zeros(3, 4, 4)
+    a[1, 2, 0] = np.nan
+    b = a.clone()
+    assert tile_check.bit_mismatch(a, b) == {
+        "n_diff": 0, "nan_pattern": True, "max_ulp": 0, "first": None}
+    assert not torch.equal(a, b)
+    b[2, 3, 1] = float(np.nextafter(np.float32(0), np.float32(1)) * 3)
+    b[0, 3, 2] = 1.0
+    a[0, 3, 2] = float(np.nextafter(np.float32(1), np.float32(2)))
+    got = tile_check.bit_mismatch(a, b)
+    assert got["n_diff"] == 2 and got["nan_pattern"]
+    assert got["max_ulp"] == 3 and got["first"] == (2, 1, 3)
+    b[1, 2, 0] = 0.0
+    got = tile_check.bit_mismatch(a, b)
+    assert got["n_diff"] == 3 and not got["nan_pattern"]
+    assert got["max_ulp"] == float("inf") and got["first"] == (1, 0, 2)
 
 
 def test_wrapper_dispatch_cpu_and_refusal():

@@ -11,6 +11,7 @@ imports no JAX, so it also runs on a GPU machine that has none:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import importlib.util
 import json
 import os
 
@@ -28,6 +29,13 @@ from cmpc_tpu_torch.sim import closed_loop, wholebody_loop
 from cmpc_tpu_torch.wholebody import (inverse_dynamics as wbid,
                                       plant as wbplant, setup as wbsetup)
 from cmpc_tpu_torch.wholebody.state import retrieve_state
+
+# tile families and the bitwise comparison (tools/tile_check.py)
+_spec = importlib.util.spec_from_file_location(
+    "tile_check", os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "tile_check.py"))
+tile_check = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(tile_check)
 
 pytestmark = pytest.mark.cuda
 
@@ -117,6 +125,26 @@ def test_cuda_chol_tile_clamp_and_nan(cuda):
     np.testing.assert_allclose(L[:2].cpu().numpy(), Lr[:2].numpy(), rtol=0,
                                atol=1e-12)
     assert torch.equal(torch.isnan(L[2]).cpu(), torch.isnan(Lr[2]))
+
+
+@pytest.mark.parametrize("batch", ["1", "7", "256", "1280", "families"])
+def test_cuda_factor_is_the_plain_elimination_bit_for_bit(batch, cuda):
+    """chip_smoke.py phase 3's check: each kernel's f32 L equals the plain
+    elimination's (_chol_tile_loop on the card, the JAX package's
+    _chol_tile step for step) by torch.equal, on random SPD tiles and on
+    the tile families of tools/tile_check.py, where NaN matches NaN."""
+    if batch == "families":
+        fams = tile_check.tile_families(np.random.default_rng(17), 8)
+        M = np.concatenate([fams[f] for f in tile_check.FAMILIES])
+    else:
+        M = _spd(np.random.default_rng(int(batch)), int(batch), 64)
+    A = torch.tensor(M, dtype=torch.float32, device=cuda)
+    plain = tbc._chol_tile_loop(A)
+    for L in (tbc.chol_inv_tile(A)[0], tbc.chol_tile(A)):
+        m = tile_check.bit_mismatch(L, plain)
+        assert m["n_diff"] == 0, m
+        if batch != "families":
+            assert torch.equal(L, plain)
 
 
 def test_cuda_chol_tile_rejects_bad_input(cuda):

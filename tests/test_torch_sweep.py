@@ -356,6 +356,95 @@ def test_run_sweep_torch_cli_writes_to_out(tmp_path, capsys, monkeypatch):
         run_sweep_torch.main(["2", "2", "1", "--out", str(out)])
 
 
+def test_replicate_moves_the_start_by_ulps():
+    """mesh.replicate(k) moves every starting CoM height up by exactly k
+    ulps of the working type and nothing else (k = 0 is the batch itself);
+    one ulp is enough to give the walk a rounding history of its own."""
+    sc = tmesh.make_batch(CFG, 3, seed=run_sweep_torch.SEED, device="cpu",
+                          dtype=torch.float32)
+    assert tmesh.replicate(sc, 0) is sc
+    bits = sc.init_com.view(torch.int32)
+    for k in (1, 3):
+        rep = tmesh.replicate(sc, k)
+        assert torch.equal(rep.init_com.view(torch.int32)[:, 2] - bits[:, 2],
+                           torch.full((3,), k, dtype=torch.int32))
+        assert torch.equal(rep.init_com[:, :2], sc.init_com[:, :2])
+        for name in sc._fields:
+            if name != "init_com":
+                assert torch.equal(getattr(rep, name), getattr(sc, name))
+    b64 = tmesh.make_batch(CFG, 1, seed=0, device="cpu",
+                           dtype=torch.float64)
+    assert tmesh.replicate(b64, 1).init_com[0, 2].item() == np.nextafter(
+        b64.init_com[0, 2].item(), 1.0)
+    with pytest.raises(ValueError):
+        tmesh.replicate(sc, -1)
+    _, tr0 = tcl.rollout(sc, CFG, 6)
+    _, tr1 = tcl.rollout(tmesh.replicate(sc, 1), CFG, 6)
+    assert not torch.equal(tr0.com_pos[:, -1, :2], tr1.com_pos[:, -1, :2])
+
+
+def test_run_sweep_torch_nudge_and_resume(tmp_path, capsys):
+    """--nudge 0 is the batch as it is, bit for bit; a run stopped after
+    each chunk (--stop-after 0) and resumed from its checkpoint each time
+    gives the unsplit run's rows and statistics bit for bit; a checkpoint
+    of another run (here another nudge) is refused."""
+    import json
+
+    def strip(p):
+        return {k: p[k] for k in ("rows", "stats", "ticks", "n_scenarios")}
+
+    kw = dict(device="cpu", dtype=torch.float32, cfg=CFG)
+    whole = run_sweep_torch.run(3, 6, 2, **kw)
+    assert strip(run_sweep_torch.run(3, 6, 2, nudge_ulps=0, **kw)) \
+        == strip(whole)
+    ckpt = str(tmp_path / "s.ckpt.npz")
+    assert run_sweep_torch.run(3, 6, 2, ckpt=ckpt, stop_after=0, **kw) \
+        is None
+    with pytest.raises(ValueError, match="another run"):
+        run_sweep_torch.run(3, 6, 2, ckpt=ckpt, resume=True, nudge_ulps=1,
+                            **kw)
+    assert run_sweep_torch.run(3, 6, 2, ckpt=ckpt, resume=True,
+                               stop_after=0, **kw) is None
+    split = run_sweep_torch.run(3, 6, 2, ckpt=ckpt, resume=True, **kw)
+    assert split["resumed_after_chunk"] == 2
+    assert strip(split) == strip(whole)
+    # the command line: --nudge is written, --stop-after writes no JSON
+    out = tmp_path / "n.json"
+    run_sweep_torch.main(["2", "2", "1", "--device", "cpu", "--nudge", "1",
+                          "--out", str(out)])
+    assert json.loads(out.read_text())["nudge"] == 1
+    capsys.readouterr()
+    run_sweep_torch.main(["2", "2", "1", "--device", "cpu", "--out",
+                          str(tmp_path / "p.json"), "--ckpt",
+                          str(tmp_path / "p.npz"), "--stop-after", "0"])
+    assert not (tmp_path / "p.json").exists() and capsys.readouterr().out \
+        == ""
+    assert (tmp_path / "p.npz").exists()
+
+
+def test_walk_envelope_failed_bounds():
+    """tools/walk_envelope_torch.py's verdict per replicate: a number, a
+    figure named on the right, "true" and the push test's max(2 x pre,
+    0.03), each side of its bound."""
+    spec = importlib.util.spec_from_file_location(
+        "walk_envelope_torch", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tools", "walk_envelope_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    figs = {"err_xy_max": 0.1, "com_pos_finite": True, "final_com_x": 1.9,
+            "push_pre_600_799": 0.01, "push_post_1200_1399": 0.025,
+            "hw_min_480_499": 1.0, "hw_max_200_479": 2.0}
+    bounds = {k: tool.NOMINAL_BOUNDS[k] for k in (
+        "err_xy_max", "com_pos_finite", "final_com_x",
+        "push_post_1200_1399", "hw_min_480_499")}
+    assert tool.failed_bounds(figs, bounds) == []
+    bad = dict(figs, err_xy_max=0.2, com_pos_finite=False, final_com_x=1.7,
+               push_post_1200_1399=0.031, hw_min_480_499=2.5)
+    assert tool.failed_bounds(bad, bounds) == list(bounds)
+    assert tool.failed_bounds(dict(figs, push_pre_600_799=0.02,
+                                   push_post_1200_1399=0.035), bounds) == []
+
+
 def test_sweep_rows_jax_reruns_the_fallen_scenarios(x64, tmp_path, capsys):
     """tools/sweep_rows_jax.py on two port runs of the production batch (4
     scenarios, 2 chunks of 1 tick, f64): it reruns the scenarios that fell
@@ -390,6 +479,23 @@ def test_sweep_rows_jax_reruns_the_fallen_scenarios(x64, tmp_path, capsys):
         want = out["rows"][r["index"]]["max_err"]
         assert want > 0.0
         assert abs(r["jax"]["max_err"] - want) <= TOL * want, r
+    # --scenarios: the given indices on one port file's batch, as long as
+    # that run
+    for ports in ([], [str(p) for p in paths]):
+        with pytest.raises(SystemExit):
+            tool.main(ports + ["--scenarios", "1"])
+    tool.main([str(paths[0]), "--scenarios", "1,3", "--dtype", "float64"])
+    only = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert only["ticks"] == 2 and "port_a" not in only
+    assert [r["index"] for r in only["rows"]] == [1, 3]
+    assert [r["jax"] for r in only["rows"]] == [r["jax"] for r in
+                                                got["rows"]]
+    # --nudge makes the port's rounding replicates
+    b = tmesh.make_batch(CFG, 3, seed=7, device="cpu", dtype=torch.float32)
+    for k in (0, 2):
+        np.testing.assert_array_equal(
+            tool.nudge_heights(b.init_com.numpy(), k),
+            tmesh.replicate(b, k).init_com.numpy())
 
 
 def test_step_parity_tools_hold_a_sweep_scenario(x64, tmp_path, capsys,
@@ -399,7 +505,9 @@ def test_step_parity_tools_hold_a_sweep_scenario(x64, tmp_path, capsys,
     steps the port from each recorded carry and lands within the tolerance
     of JAX's next one, with the kernel's step and with the plain one (the
     same on the CPU).  The recorded trace is the envelope tool's input.
-    tools/tile_accuracy_torch.py holds each tile step against f64."""
+    With --decisions both count the solver's discrete decisions, the same
+    in f64.  tools/tile_accuracy_torch.py holds each tile step against
+    f64."""
     import json
 
     def load(name):
@@ -412,7 +520,7 @@ def test_step_parity_tools_hold_a_sweep_scenario(x64, tmp_path, capsys,
 
     record, step = load("step_parity_jax"), load("step_parity_torch")
     record.main(["nominal,34", "--dtype", "float64", "--ticks", "3",
-                 "--every", "2", "--out", str(tmp_path)])
+                 "--every", "2", "--decisions", "--out", str(tmp_path)])
     with np.load(tmp_path / "carries.npz") as z:
         assert z["ticks"].tolist() == [0, 2]
         assert z["before/plant/com_pos"].shape == (2, 2, 3)
@@ -423,8 +531,17 @@ def test_step_parity_tools_hold_a_sweep_scenario(x64, tmp_path, capsys,
     monkeypatch.setattr(bc, "chol_inv_tile_into", bc.chol_inv_tile_into)
     for plain in (False, True):
         step.main([str(tmp_path / "carries.npz"), "--device", "cpu"]
-                  + ["--plain-tile"] * plain)
+                  + ["--plain-tile"] * plain + ["--decisions"] * plain)
         got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        if plain:
+            dec = got["decisions"]
+            # 2 ticks x 2 rows x 3 SQP iterations, x 8 interior-point steps
+            assert sum(dec["jax"]["alpha_counts"]) == 12
+            assert dec["jax"]["pdip_steps"] == 96
+            assert dec["port"] == dec["jax"]
+            assert dec["adaptation_differs"] == []
+        else:
+            assert "decisions" not in got
         assert got["ticks_stepped"] == 2 and got["launches"] == 0
         assert got["plain_tile"] is plain
         assert [r["row"] for r in got["rows"]] == ["nominal", "34"]
@@ -439,5 +556,10 @@ def test_step_parity_tools_hold_a_sweep_scenario(x64, tmp_path, capsys,
                                       "--device", "cpu"])
     acc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert acc["tiles"] == 2 * 120 * 2 and acc["f64_not_pd"] == 0
+    assert acc["input_not_finite"] == 0
     assert acc["L_kernel"] == acc["L_ref"] and acc["X_kernel"] == acc["X_ref"]
     assert acc["X_ref"]["p100"] <= 1e-12
+    for key in ("not_finite_tiles", "not_finite_tiles_finite_input"):
+        assert acc[key] == dict.fromkeys(
+            ("L_kernel", "X_kernel", "L_ref", "X_ref", "L_f64", "X_f64"), 0)
+    assert acc["routed_kernel_vs_elimination"]["elements"] == 0

@@ -17,6 +17,15 @@ Writes to --out:
   ROW.npz      each row's whole trace, as tools/walk_envelope_torch.py
                reads it with --trace.
 
+--decisions also records, at every recorded tick, the solver's discrete
+decisions (the JAX package itself is not changed: its modules' ``jnp`` is
+wrapped for the run): how often the merit line search chose each of its
+step lengths (``decisions/alpha``, (K, 5) counts over the rows and SQP
+iterations), and how many interior-point iterations met a non-finite
+Newton direction and froze their iterate (``decisions/frozen`` of
+``decisions/pdip``), for tools/step_parity_torch.py --decisions to hold
+the port's decisions from the same carries against.
+
     python tools/step_parity_jax.py nominal,payload --dtype float64 \\
         --out runs/jax_f64
     python tools/step_parity_jax.py nominal,1,6 --every 5 --out runs/jax_f32
@@ -43,6 +52,58 @@ def flatten(carry, prefix: str) -> dict:
         for k, v in getattr(carry, part)._asdict().items():
             out[f"{prefix}/{part}/{k}"] = np.asarray(v)
     return out
+
+
+class _Recorder:
+    """Wraps a module's ``jnp`` so that the line search's argmin (sqp) and
+    the interior point's guarded update (pdip: nan_to_num of dv, dw, dlam
+    in this order) report their decisions through jax.debug.callback, one
+    call per scenario, counted per tick."""
+
+    def __init__(self, n_alphas: int):
+        self.alpha = np.zeros(n_alphas, np.int64)
+        self.frozen = 0
+        self.pdip = 0
+
+    def reset(self):
+        self.alpha[:] = 0
+        self.frozen = self.pdip = 0
+
+    def _on_alpha(self, best):
+        for b in np.ravel(np.asarray(best)):
+            self.alpha[int(b)] += 1
+
+    def _on_frozen(self, bad):
+        bad = np.ravel(np.asarray(bad))
+        self.frozen += int(bad.sum())
+        self.pdip += bad.size
+
+    def wrap(self, jax, jnp, kind: str):
+        rec = self
+        pending = []
+
+        class Proxy:
+            def __getattr__(self, name):
+                return getattr(jnp, name)
+
+            def argmin(self, x, *a, **k):
+                r = jnp.argmin(x, *a, **k)
+                if kind == "sqp":
+                    jax.debug.callback(rec._on_alpha, r)
+                return r
+
+            def nan_to_num(self, x, *a, **k):
+                if kind == "pdip":
+                    pending.append(x)
+                    if len(pending) == 3:         # dv, dw, dlam of one step
+                        bad = ~(jnp.all(jnp.isfinite(pending[0]))
+                                & jnp.all(jnp.isfinite(pending[1]))
+                                & jnp.all(jnp.isfinite(pending[2])))
+                        pending.clear()
+                        jax.debug.callback(rec._on_frozen, bad)
+                return jnp.nan_to_num(x, *a, **k)
+
+        return Proxy()
 
 
 def scenario_rows(names: list, cfg) -> dict:
@@ -75,6 +136,8 @@ def main(argv=None):
                     help="default: the whole walk")
     ap.add_argument("--every", type=int, default=1,
                     help="record the carries of every k-th tick")
+    ap.add_argument("--decisions", action="store_true",
+                    help="record the solver's discrete decisions too")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
 
@@ -95,34 +158,57 @@ def main(argv=None):
         rows = {k: v.astype(np.float64) if v.dtype.kind == "f" else v
                 for k, v in rows.items()}
     sc = Scenario(**{k: jnp.asarray(v) for k, v in rows.items()})
-    carry = jax.vmap(
-        lambda s: closed_loop.rollout(s, cfg, return_tick=True)[0])(sc)
-    step = jax.jit(jax.vmap(
-        lambda s, c, t0: closed_loop.rollout(s, cfg, T_sim=1, t0=t0,
-                                             carry_in=c),
-        in_axes=(0, 0, None)))
+    recorder = None
+    if args.decisions:
+        from cmpc_tpu.ops import pdip as jpdip, sqp as jsqp
+        recorder = _Recorder(5)
+        saved = jsqp.jnp, jpdip.jnp
+        jsqp.jnp = recorder.wrap(jax, jnp, "sqp")
+        jpdip.jnp = recorder.wrap(jax, jnp, "pdip")
+    try:
+        carry = jax.vmap(
+            lambda s: closed_loop.rollout(s, cfg, return_tick=True)[0])(sc)
+        step = jax.jit(jax.vmap(
+            lambda s, c, t0: closed_loop.rollout(s, cfg, T_sim=1, t0=t0,
+                                                 carry_in=c),
+            in_axes=(0, 0, None)))
 
-    rec, ticks, traces = {}, [], []
-    t_wall = time.perf_counter()
-    for t in range(T):
-        keep = t % args.every == 0
-        if keep:
-            for k, v in flatten(carry, "before").items():
-                rec.setdefault(k, []).append(v)
-        carry, tr = step(sc, carry, t)
-        tr = {k: np.asarray(v)[:, 0] for k, v in tr._asdict().items()}
-        traces.append(tr)
-        if keep:
-            ticks.append(t)
-            for k, v in flatten(carry, "after").items():
-                rec.setdefault(k, []).append(v)
-            rec.setdefault("r_prim", []).append(tr["r_prim"])
-            rec.setdefault("err_xy", []).append(np.linalg.norm(
-                tr["com_pos"][:, :2] - tr["com_ref"][:, :2], axis=-1))
-        if (t + 1) % 100 == 0:
-            print(f"[record] tick {t + 1}/{T} "
-                  f"({time.perf_counter() - t_wall:.0f} s)", file=sys.stderr,
-                  flush=True)
+        rec, ticks, traces = {}, [], []
+        t_wall = time.perf_counter()
+        for t in range(T):
+            keep = t % args.every == 0
+            if keep:
+                for k, v in flatten(carry, "before").items():
+                    rec.setdefault(k, []).append(v)
+            if recorder is not None:
+                jax.effects_barrier()
+                recorder.reset()
+            carry, tr = step(sc, carry, t)
+            tr = {k: np.asarray(v)[:, 0] for k, v in tr._asdict().items()}
+            traces.append(tr)
+            if keep:
+                ticks.append(t)
+                if recorder is not None:
+                    jax.effects_barrier()
+                    rec.setdefault("decisions/alpha", []).append(
+                        recorder.alpha.copy())
+                    rec.setdefault("decisions/frozen", []).append(
+                        recorder.frozen)
+                    rec.setdefault("decisions/pdip", []).append(recorder.pdip)
+                    rec.setdefault("decisions/adapted", []).append(
+                        tr["adapted"])
+                for k, v in flatten(carry, "after").items():
+                    rec.setdefault(k, []).append(v)
+                rec.setdefault("r_prim", []).append(tr["r_prim"])
+                rec.setdefault("err_xy", []).append(np.linalg.norm(
+                    tr["com_pos"][:, :2] - tr["com_ref"][:, :2], axis=-1))
+            if (t + 1) % 100 == 0:
+                print(f"[record] tick {t + 1}/{T} "
+                      f"({time.perf_counter() - t_wall:.0f} s)",
+                      file=sys.stderr, flush=True)
+    finally:
+        if recorder is not None:
+            jsqp.jnp, jpdip.jnp = saved
 
     os.makedirs(args.out, exist_ok=True)
     np.savez(os.path.join(args.out, "carries.npz"),

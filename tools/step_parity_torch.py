@@ -15,6 +15,13 @@ place (--plain-tile), and the CPU.
     python tools/step_parity_torch.py runs/jax_f32/carries.npz \\
         [--device cuda] [--plain-tile] [--out PATH]
 
+--decisions (carries recorded with step_parity_jax.py --decisions) also
+counts the solver's discrete decisions of both packages at the recorded
+ticks: the merit line search's chosen step length (per candidate), the
+interior-point iterations frozen by a non-finite Newton direction, and
+the footstep adaptations (with the ticks and rows where the two packages
+decide otherwise), under "decisions".
+
 Prints one JSON object: per row the largest difference of each quantity,
 the tick of the largest, the first tick over TOL (or null), percentiles
 of the per-tick largest difference, and every 100 ticks the largest
@@ -54,7 +61,53 @@ def carry_dict(z, prefix: str, k: int) -> dict:
     return d
 
 
-def run(path: str, device="cuda", plain=False) -> dict:
+class _Decisions:
+    """Wraps the port's ``torch`` in ops/sqp (the line search's argmin) and
+    ops/pdip (nan_to_num of dv, dw, dlam, in this order: the guarded
+    update) to count the solver's discrete decisions per scenario."""
+
+    def __init__(self, n_alphas: int):
+        self.alpha = np.zeros(n_alphas, np.int64)
+        self.frozen = 0
+        self.pdip = 0
+
+    def wrap(self, kind: str):
+        rec, pending = self, []
+
+        class Proxy:
+            def __getattr__(self, name):
+                return getattr(torch, name)
+
+            def argmin(self, x, *a, **k):
+                r = torch.argmin(x, *a, **k)
+                if kind == "sqp":
+                    np.add.at(rec.alpha, r.cpu().numpy().ravel(), 1)
+                return r
+
+            def nan_to_num(self, x, *a, **k):
+                if kind == "pdip":
+                    pending.append(x)
+                    if len(pending) == 3:         # dv, dw, dlam of one step
+                        ok = torch.stack([torch.isfinite(v).all(1)
+                                          for v in pending]).all(0)
+                        pending.clear()
+                        rec.frozen += int((~ok).sum())
+                        rec.pdip += ok.numel()
+                return torch.nan_to_num(x, *a, **k)
+
+        return Proxy()
+
+
+def _decision_summary(alpha, frozen, pdip, adapted) -> dict:
+    alpha = np.asarray(alpha).sum(0)
+    return {"alpha_counts": alpha.tolist(),
+            "rejected_share": float(alpha[-1] / max(alpha.sum(), 1)),
+            "frozen": int(np.sum(frozen)), "pdip_steps": int(np.sum(pdip)),
+            "frozen_share": float(np.sum(frozen) / max(np.sum(pdip), 1)),
+            "adaptations": int(np.sum(adapted))}
+
+
+def run(path: str, device="cuda", plain=False, decisions=False) -> dict:
     from cmpc_tpu_torch import convert
     from cmpc_tpu_torch.config import WalkConfig, resolve_device
     from cmpc_tpu_torch.ops import batched_chol as bc
@@ -75,25 +128,59 @@ def run(path: str, device="cuda", plain=False) -> dict:
         {k.split("/", 1)[1]: z[k] for k in z.files
          if k.startswith("scenario/")}, device, dtype)
     _, tick = closed_loop.rollout(sc, WalkConfig(), return_tick=True)
+    dec = None
+    if decisions:
+        from cmpc_tpu_torch.ops import pdip, sqp
+        if "decisions/alpha" not in z.files:
+            raise ValueError(f"{path} holds no decisions: record it with "
+                             f"step_parity_jax.py --decisions")
+        dec = _Decisions(z["decisions/alpha"].shape[1])
+        saved = sqp.torch, pdip.torch
+        sqp.torch, pdip.torch = dec.wrap("sqp"), dec.wrap("pdip")
+        port = {"alpha": [], "frozen": [], "pdip": [], "adapted": []}
 
     diffs = {q: np.zeros((len(ticks), len(names))) for q in QUANTITIES}
     bc.LAUNCHES["chol_inv_tile"] = 0
     t_wall = time.perf_counter()
-    for k, t in enumerate(ticks):
-        carry = convert.loop_carry_from_numpy(carry_dict(z, "before", k),
-                                              device, dtype)
-        got_carry, got_tr = tick(carry, t)
-        want = carry_dict(z, "after", k)
-        got = {"r_prim": got_tr.r_prim, "plan_pos": got_carry.plan_pos,
-               **got_carry.plant._asdict()}
-        want = {"r_prim": z["r_prim"][k], "plan_pos": want["plan_pos"],
-                **want["plant"]}
-        for q in QUANTITIES:
-            d = np.abs(got[q].double().cpu().numpy() - want[q])
-            diffs[q][k] = d.reshape(len(names), -1).max(axis=1)
+    try:
+        for k, t in enumerate(ticks):
+            carry = convert.loop_carry_from_numpy(carry_dict(z, "before", k),
+                                                  device, dtype)
+            if dec is not None:
+                dec.alpha[:] = 0
+                dec.frozen = dec.pdip = 0
+            got_carry, got_tr = tick(carry, t)
+            if dec is not None:
+                port["alpha"].append(dec.alpha.copy())
+                port["frozen"].append(dec.frozen)
+                port["pdip"].append(dec.pdip)
+                port["adapted"].append(
+                    got_tr.adapted.reshape(-1).cpu().numpy())
+            want = carry_dict(z, "after", k)
+            got = {"r_prim": got_tr.r_prim, "plan_pos": got_carry.plan_pos,
+                   **got_carry.plant._asdict()}
+            want = {"r_prim": z["r_prim"][k], "plan_pos": want["plan_pos"],
+                    **want["plant"]}
+            for q in QUANTITIES:
+                d = np.abs(got[q].double().cpu().numpy() - want[q])
+                diffs[q][k] = d.reshape(len(names), -1).max(axis=1)
+    finally:
+        if dec is not None:
+            sqp.torch, pdip.torch = saved
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t_wall
+    if dec is not None:
+        jax_adapted = z["decisions/adapted"].astype(bool)
+        port_adapted = np.stack(port["adapted"]).astype(bool)
+        differ = np.argwhere(jax_adapted != port_adapted)
+        dec_out = {"jax": _decision_summary(
+                       z["decisions/alpha"], z["decisions/frozen"],
+                       z["decisions/pdip"], jax_adapted),
+                   "port": _decision_summary(port["alpha"], port["frozen"],
+                                             port["pdip"], port_adapted),
+                   "adaptation_differs": [[ticks[k], names[b]]
+                                          for k, b in differ]}
 
     rows = []
     for b, name in enumerate(names):
@@ -125,7 +212,8 @@ def run(path: str, device="cuda", plain=False) -> dict:
             "ticks_stepped": len(ticks), "first_tick": ticks[0],
             "last_tick": ticks[-1],
             "launches": bc.LAUNCHES["chol_inv_tile"],
-            "wall_s": round(wall, 1), "rows": rows}
+            "wall_s": round(wall, 1), "rows": rows,
+            **({"decisions": dec_out} if dec is not None else {})}
 
 
 def main(argv=None):
@@ -135,11 +223,13 @@ def main(argv=None):
                     help="torch device (default cuda; never falls back)")
     ap.add_argument("--plain-tile", action="store_true",
                     help="the tile kernel's plain torch version in its place")
+    ap.add_argument("--decisions", action="store_true",
+                    help="count both packages' discrete solver decisions")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if args.device == "cpu":
         torch.set_num_threads(1)
-    out = run(args.carries, args.device, args.plain_tile)
+    out = run(args.carries, args.device, args.plain_tile, args.decisions)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

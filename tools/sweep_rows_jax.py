@@ -18,6 +18,18 @@ in the order of the indices.
     python tools/sweep_rows_jax.py PORT_F32.json PORT_F64.json \\
         --dtype float64 [--max 32] [--out PATH]
 
+--scenarios I,J,... runs the given indices of the batch instead, for as
+many ticks as the one port file given runs, on its batch (its n, seed and
+chunk); their rows then hold the JAX run's figures alone.  Several such
+runs over parts of one list split the work across processes:
+
+    python tools/sweep_rows_jax.py PORT_F32.json --scenarios 1,6,14 \\
+        --dtype float32 --out runs/jax_rows_0.json
+
+--nudge K runs the rounding replicate K, as the port's
+parallel/mesh.replicate makes it: every starting CoM height K ulps of
+the working type up.
+
 JAX runs on the CPU; float64 switches on jax_enable_x64 and casts the
 batch's floats (all float32 values, as make_batch draws them) to float64.
 """
@@ -47,15 +59,32 @@ def choose(rows_a: list, rows_b: list, limit: int) -> list:
             ][:limit]
 
 
+def nudge_heights(init_com: np.ndarray, k: int) -> np.ndarray:
+    """init_com (n, 3) with every height (column 2) k ulps of its type up:
+    the port's parallel/mesh.replicate on numpy arrays."""
+    com = init_com.copy()
+    for _ in range(k):
+        com[:, 2] = np.nextafter(com[:, 2], np.asarray(np.inf, com.dtype))
+    return com
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("port_a", help="run_sweep_torch.py JSON (e.g. float32)")
-    ap.add_argument("port_b", help="run_sweep_torch.py JSON (e.g. float64)")
+    ap.add_argument("ports", nargs="+",
+                    help="two run_sweep_torch.py JSONs (e.g. float32, "
+                         "float64); one with --scenarios")
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "float64"))
     ap.add_argument("--max", type=int, default=32)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--scenarios", default=None,
+                    help="comma-separated indices: run these on the one "
+                         "port file's batch")
+    ap.add_argument("--nudge", type=int, default=0,
+                    help="rounding replicate: the CoM height K ulps up")
     args = ap.parse_args(argv)
+    if len(args.ports) != (1 if args.scenarios else 2):
+        ap.error("give two port files, or --scenarios and one")
 
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -65,20 +94,27 @@ def main(argv=None):
     from cmpc_tpu.parallel import mesh as pm
     from cmpc_tpu.sim import closed_loop
 
-    with open(args.port_a) as f:
-        a = json.load(f)
-    with open(args.port_b) as f:
-        b = json.load(f)
+    runs = []
+    for path in args.ports:
+        with open(path) as f:
+            runs.append(json.load(f))
     batch = ("n_scenarios", "seed", "chunk")
-    if [a[k] for k in batch] != [b[k] for k in batch] or "scenarios" in a \
-            or "scenarios" in b:
-        raise ValueError("the two runs are not of the same whole batch")
-    n, seed, chunk = (a[k] for k in batch)
-    idx = choose(a["rows"], b["rows"], args.max)
-    n_chunks = 1 + max((run["rows"][i]["fall_chunk"] for run in (a, b)
-                        for i in idx
-                        if run["rows"][i]["fall_chunk"] is not None),
-                       default=-1)
+    if args.scenarios:
+        a = b = None
+        n, seed, chunk = (runs[0][k] for k in batch)
+        idx = [int(i) for i in args.scenarios.split(",")]
+        n_chunks = runs[0]["ticks"] // chunk
+    else:
+        a, b = runs
+        if [a[k] for k in batch] != [b[k] for k in batch] \
+                or "scenarios" in a or "scenarios" in b:
+            raise ValueError("the two runs are not of the same whole batch")
+        n, seed, chunk = (a[k] for k in batch)
+        idx = choose(a["rows"], b["rows"], args.max)
+        n_chunks = 1 + max((run["rows"][i]["fall_chunk"] for run in (a, b)
+                            for i in idx
+                            if run["rows"][i]["fall_chunk"] is not None),
+                           default=-1)
     print(f"[rows] {len(idx)} scenarios {idx}, {n_chunks} chunks of "
           f"{chunk}, {args.dtype}", file=sys.stderr, flush=True)
 
@@ -91,6 +127,7 @@ def main(argv=None):
         jax.config.update("jax_enable_x64", True)
         batch = {k: v.astype(np.float64) if v.dtype.kind == "f" else v
                  for k, v in batch.items()}
+    batch["init_com"] = nudge_heights(batch["init_com"], args.nudge)
     sc = Scenario(**{k: jnp.asarray(v) for k, v in batch.items()})
 
     carry = jax.jit(jax.vmap(
@@ -120,21 +157,25 @@ def main(argv=None):
     def fc(k):
         return None if k is None or k < 0 else int(k)
 
+    def port_row(run, i):
+        return {"fall_chunk": run["rows"][i]["fall_chunk"],
+                "max_err": run["rows"][i]["max_err"]}
+
     out = {"dtype": args.dtype, "seed": seed, "n_scenarios": n,
+           "nudge": args.nudge,
            "chunk": chunk, "ticks": n_chunks * chunk,
-           "port_a": {"file": os.path.basename(args.port_a),
-                      "dtype": a.get("dtype")},
-           "port_b": {"file": os.path.basename(args.port_b),
-                      "dtype": b.get("dtype")},
            "wall_s": round(time.perf_counter() - t_wall, 1),
            "rows": [{"index": i,
-                     "port_a": {"fall_chunk": a["rows"][i]["fall_chunk"],
-                                "max_err": a["rows"][i]["max_err"]},
-                     "port_b": {"fall_chunk": b["rows"][i]["fall_chunk"],
-                                "max_err": b["rows"][i]["max_err"]},
                      "jax": {"fall_chunk": fc(fall_chunk[j]),
                              "max_err": float(max_err[j])}}
                     for j, i in enumerate(idx)]}
+    if a is not None:
+        for key, run, path in (("port_a", a, args.ports[0]),
+                               ("port_b", b, args.ports[1])):
+            out[key] = {"file": os.path.basename(path),
+                        "dtype": run.get("dtype")}
+            for j, i in enumerate(idx):
+                out["rows"][j][key] = port_row(run, i)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -6,12 +6,19 @@ tools/step_parity_torch.py does, float32) and, at every tile step of the
 Newton inverse, computes the same tiles three ways: the kernel (whose
 results the tick goes on with), chol_inv_tile_ref, and float64 (a
 Cholesky and a triangular solve of the tile's lower triangle, made
-symmetric).  Counts the tiles that are not positive definite in float64
-(their f32 pivots hit the elimination's clamp); over the others reports
-the relative error of each one's L and L^-1 against float64, per tile
-(the largest element error over the largest element), as percentiles,
-with the tile's condition estimate (largest over smallest pivot of the
-f64 factor, squared) where the kernel is worst.
+symmetric).  Counts the tiles whose input holds a value that is not
+finite, and among the others those that are not positive definite in
+float64 (their f32 pivots hit the elimination's clamp); over the tiles
+with finite input that are positive definite it reports the relative
+error of each one's L and L^-1 against float64, per tile (the largest
+element error over the largest element), as percentiles, with the tile's
+condition estimate (largest over smallest pivot of the f64 factor,
+squared) where the kernel is worst.  It counts, per implementation, the
+tiles whose factor and whose inverse hold a value that is not finite, over
+all tiles and over those with finite input, and it holds the kernel's
+factor to the plain elimination's bit for bit on the tiles that
+chol_tile_ref sends to the elimination (those LAPACK refuses or factors
+with a pivot at the clamp).
 
     python tools/tile_accuracy_torch.py runs/jax_f32/carries.npz \\
         [--device cuda] [--out PATH]
@@ -42,11 +49,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import step_parity_torch
+    import tile_check
     from cmpc_tpu_torch.ops import batched_chol as bc
 
     kernel_into = bc.chol_inv_tile_into
+    outputs = ("L_kernel", "X_kernel", "L_ref", "X_ref", "L_f64", "X_f64")
     rec = {k: [] for k in ("L_kernel", "L_ref", "X_kernel", "X_ref",
-                           "cond", "pd")}
+                           "cond", "pd", "routed", "finite_in")
+           + tuple("nf_" + k for k in outputs)}
+    routed_diff = {"calls": 0, "elements": 0, "max_ulp": 0, "first": None}
 
     def rel(M, ref):
         scale = ref.abs().amax((-1, -2))
@@ -68,6 +79,23 @@ def main(argv=None):
         rec["X_ref"].append(rel(Xr, X64))
         rec["cond"].append((d.amax(-1) / d.amin(-1)) ** 2)
         rec["pd"].append(info == 0)
+        rec["finite_in"].append(torch.isfinite(A.tril()).flatten(1).all(1))
+        for k, M in zip(outputs, (L, X, Lr, Xr, L64, X64)):
+            rec["nf_" + k].append((~torch.isfinite(M)).flatten(1).any(1))
+        Lc, inf32 = torch.linalg.cholesky_ex(A.contiguous())
+        routed = (inf32 != 0) | ~(torch.diagonal(Lc, dim1=-2, dim2=-1)
+                                  > 1e-15).all(-1)
+        rec["routed"].append(routed)
+        if bool(routed.any()):
+            idx = routed.nonzero().squeeze(1)
+            m = tile_check.bit_mismatch(L[idx], bc._chol_tile_loop(
+                A.contiguous()[idx]))
+            if m["n_diff"]:
+                routed_diff["calls"] += 1
+                routed_diff["elements"] += m["n_diff"]
+                routed_diff["max_ulp"] = max(routed_diff["max_ulp"],
+                                             m["max_ulp"])
+                routed_diff["first"] = routed_diff["first"] or m["first"]
 
     bc.chol_inv_tile_into = into
     try:
@@ -75,10 +103,18 @@ def main(argv=None):
     finally:
         bc.chol_inv_tile_into = kernel_into
     got = {k: torch.cat(v).cpu().numpy() for k, v in rec.items()}
-    pd = got["pd"]
+    fin = got["finite_in"]
+    pd = got["pd"] & fin          # LAPACK passes a NaN pivot as PD
     out = {"device": parity["device"], "dtype": parity["dtype"],
            "tiles": int(len(pd)), "launches": parity["launches"],
-           "f64_not_pd": int((~pd).sum())}
+           "input_not_finite": int((~fin).sum()),
+           "f64_not_pd": int((~got["pd"] & fin).sum()),
+           "routed_to_elimination": int(got["routed"].sum()),
+           "routed_kernel_vs_elimination": routed_diff,
+           "not_finite_tiles": {k: int(got["nf_" + k].sum())
+                                for k in outputs},
+           "not_finite_tiles_finite_input": {
+               k: int((got["nf_" + k] & fin).sum()) for k in outputs}}
     for k in ("L_kernel", "L_ref", "X_kernel", "X_ref"):
         e = got[k][pd]
         out[k] = {f"p{p}": float(np.nanpercentile(e, p)) if len(e) else None

@@ -14,7 +14,15 @@ tools/step_parity_jax.py (the JAX package's walks in either working type):
     python tools/walk_envelope_torch.py --trace runs/walk_jax/trace.npz \\
         --payload-trace runs/walk_payload_jax/trace.npz
 
---save FILE writes the per-tick xy tracking error and |hw| of each walk.
+--replicates R runs R rounding replicates of each walk as one B = 2R
+rollout (rows 0..R-1 the nominal walk, R..2R-1 the payload walk; replicate
+k has its starting CoM height k ulps up, parallel/mesh.replicate), and
+writes under "replicates" each one's figures with the bounds it fails,
+and how many replicates of each walk pass every bound:
+    python tools/walk_envelope_torch.py --device cuda --replicates 8
+
+--save FILE writes the per-tick xy tracking error and |hw| of each walk
+(replicate 0).
 The closed loop amplifies last-bit differences (PERF.md): compare runs by
 these figures against their bounds, not with each other.
 """
@@ -106,6 +114,27 @@ def nominal_figures(tr: dict, event_ticks) -> dict:
             "hw_max_200_479": float(hw[200:480].max())}
 
 
+def failed_bounds(figs: dict, bounds: dict) -> list:
+    """The keys of `bounds` whose figure in `figs` misses its bound: a
+    number ("< 0.035"), another figure ("< hw_max_200_479"), "true", or
+    the push test's "< max(2 x pre, 0.03)" (pre: push_pre_600_799)."""
+    failed = []
+    for key, bound in bounds.items():
+        x = figs[key]
+        if bound == "true":
+            ok = x is True
+        else:
+            op, rhs = bound.split(" ", 1)
+            if rhs == "max(2 x pre, 0.03)":
+                lim = max(2.0 * figs["push_pre_600_799"], 0.03)
+            else:
+                lim = figs[rhs] if rhs in figs else float(rhs)
+            ok = x < lim if op == "<" else x > lim
+        if not ok:
+            failed.append(key)
+    return failed
+
+
 def _load(path):
     with np.load(path) as z:
         tr = {k: z[k].astype(np.float64) for k in z.files}
@@ -122,6 +151,8 @@ def main():
                     help="the nominal walk's trace.npz instead of a run")
     ap.add_argument("--payload-trace", default=None,
                     help="the payload walk's trace.npz, with --trace")
+    ap.add_argument("--replicates", type=int, default=1,
+                    help="rounding replicates of each walk (a run only)")
     ap.add_argument("--save", default=None,
                     help="write the per-tick err_xy and |hw| here (.npz)")
     args = ap.parse_args()
@@ -131,7 +162,10 @@ def main():
 
     cfg = WalkConfig()
     timing = tm.build_timing(cfg)
+    R = args.replicates
     if args.trace:
+        if R != 1:
+            ap.error("--replicates runs the walks; a trace is one walk")
         rows = [_load(args.trace)]
         if args.payload_trace:
             rows.append(_load(args.payload_trace))
@@ -142,6 +176,7 @@ def main():
         from cmpc_tpu_torch.config import (Scenario, nominal_scenario,
                                            payload_scenario, resolve_device)
         from cmpc_tpu_torch.ops import batched_chol as bc
+        from cmpc_tpu_torch.parallel.mesh import replicate
         from cmpc_tpu_torch.sim import closed_loop
 
         dev = resolve_device(args.device)
@@ -152,7 +187,8 @@ def main():
         T = timing.total_ticks
         nom = nominal_scenario(cfg, device=dev, dtype=dtype)
         pay = payload_scenario(cfg, device=dev, dtype=dtype)
-        sc = Scenario(*(torch.cat([a, b]) for a, b in zip(nom, pay)))
+        walks = [replicate(w, k) for w in (nom, pay) for k in range(R)]
+        sc = Scenario(*(torch.cat(f) for f in zip(*walks)))
         bc.LAUNCHES["chol_inv_tile"] = 0
         t0 = time.perf_counter()
         _, trace = closed_loop.rollout(sc, cfg, T_sim=T)
@@ -160,7 +196,7 @@ def main():
             torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         rows = [{k: v[b].double().cpu().numpy()
-                 for k, v in trace._asdict().items()} for b in (0, 1)]
+                 for k, v in trace._asdict().items()} for b in range(2 * R)]
         out = {"device": str(dev), "dtype": args.dtype, "ticks": T,
                "wall_s": wall, "chol_inv_tile_launches":
                bc.LAUNCHES["chol_inv_tile"]}
@@ -170,12 +206,27 @@ def main():
     out["nominal"] = nominal_figures(rows[0], events)
     out["nominal_bounds"] = NOMINAL_BOUNDS
     if len(rows) > 1:
-        out["payload"] = payload_figures(rows[1])
+        out["payload"] = payload_figures(rows[R])
         out["payload_bounds"] = PAYLOAD_BOUNDS
+    if R > 1:
+        reps = []
+        for k in range(R):
+            nom_k = out["nominal"] if k == 0 else nominal_figures(rows[k],
+                                                                  events)
+            pay_k = out["payload"] if k == 0 else payload_figures(
+                rows[R + k])
+            reps.append({"nudge": k, "nominal": nom_k, "payload": pay_k,
+                         "nominal_failed": failed_bounds(nom_k,
+                                                         NOMINAL_BOUNDS),
+                         "payload_failed": failed_bounds(pay_k,
+                                                         PAYLOAD_BOUNDS)})
+        out["replicates"] = reps
+        out["nominal_pass"] = sum(not r["nominal_failed"] for r in reps)
+        out["payload_pass"] = sum(not r["payload_failed"] for r in reps)
     if args.save:
         os.makedirs(os.path.dirname(args.save) or ".", exist_ok=True)
         np.savez(args.save, **{f"{name}_{k}": s for name, tr in
-                               zip(("nominal", "payload"), rows)
+                               zip(("nominal", "payload"), rows[::R])
                                for k, s in zip(("err_xy", "hw"),
                                                _series(tr))})
     print(json.dumps(out))
