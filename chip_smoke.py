@@ -22,7 +22,10 @@ line, and no phase carries on on the CPU):
      step for step) bit for bit (torch.equal; NaN against NaN on tiles
      that hold one) at 1, 7, 256 and 1280 random SPD tiles and on 40 tiles
      of the five families of tools/tile_check.py (the rank-deficient,
-     negative-pivot and NaN tiles hit the pivot clamp), the blocked
+     negative-pivot and NaN tiles hit the pivot clamp), on the same
+     tiles the fused kernel's f32 X against tri_inv_cols of its own L (the
+     kernel's column substitution in plain torch, tools/tile_check.py) bit
+     for bit, NaN pattern apart, the blocked
      spd_inverse on an ill-conditioned 320x320 case (rel < 1e-4), and
      each kernel's time at 1, 256, 1024 and 1280 tiles (f32) beside its
      bound, with its plain version's and the library calls' at 256
@@ -209,12 +212,15 @@ def check_strided_entry(bc, dev):
 def check_bitwise(bc, dev):
     """Each kernel's f32 factor against the plain elimination
     (``_chol_tile_loop``, the JAX package's ``_chol_tile`` step for step)
-    on the card, bit for bit: random SPD tiles at B = 1, 7, 256, 1280 and
-    the tile families of ``tools/tile_check.py``.  Where they part, prints
-    the count of differing elements, the largest distance in ulps and the
-    first differing (tile, step, row); fails beyond the double-rounding
-    rate of the plain version's f64 update (1 element per 10^4 tiles, or
-    more than 1 ulp)."""
+    on the card, bit for bit, and the fused kernel's f32 inverse against
+    ``tri_inv_cols`` of its own factor (the kernel's column substitution,
+    each update one rounding): random SPD tiles at B = 1, 7, 256, 1280 and
+    the tile families of ``tools/tile_check.py``.  Prints, per batch, the
+    count of differing elements, the largest distance in ulps and the first
+    differing (tile, step, row) of the factor, or (tile, step, column) of
+    the inverse, with the NaN pattern apart; fails beyond the
+    double-rounding rate of the plain versions' f64 updates (1 element per
+    10^4 tiles, or more than 1 ulp) in either."""
     import torch
 
     spec = importlib.util.spec_from_file_location(
@@ -227,28 +233,42 @@ def check_bitwise(bc, dev):
                                                              1280)]
     batches.append(("families", np.concatenate(
         [fams[f] for f in tile_check.FAMILIES])))
-    tiles = n_diff = 0
-    worst = 0
+    tally = {"L": [0, 0, 0], "X": [0, 0, 0]}    # tiles, elements, max ulp
+
+    def held(what, label, name, got, want):
+        m = tile_check.bit_mismatch(got, want)
+        t = tally[what]
+        t[0] += len(got)
+        t[1] += m["n_diff"]
+        t[2] = max(t[2], m["max_ulp"])
+        equal = m["n_diff"] == 0
+        phase(f"  {label}: {name}: {equal} ({m['n_diff']} elements differ, "
+              f"max {m['max_ulp']} ulp, NaN pattern equal "
+              f"{m['nan_pattern']}"
+              + ("" if equal else f", first {m['first']}") + ")")
+
+    t_all, x_s = time.perf_counter(), 0.0
     for label, M in batches:
         A = torch.tensor(M, dtype=torch.float32, device=dev)
         plain = bc._chol_tile_loop(A)
-        for kern, L in (("chol_inv_tile", bc.chol_inv_tile(A)[0]),
-                        ("chol_tile", bc.chol_tile(A))):
-            m = tile_check.bit_mismatch(L, plain)
-            equal = m["n_diff"] == 0
-            tiles += len(M)
-            n_diff += m["n_diff"]
-            worst = max(worst, m["max_ulp"])
-            phase(f"  {label}: {kern} f32 L == plain elimination's: {equal}"
-                  + ("" if equal else
-                     f" ({m['n_diff']} elements differ, up to "
-                     f"{m['max_ulp']} ulp, first (tile, step, row) "
-                     f"{m['first']}, NaN pattern equal "
-                     f"{m['nan_pattern']})"))
-    if worst > 1 or n_diff * 1e4 > tiles:
-        fail(f"kernel f32 factor parts from the plain elimination: "
-             f"{n_diff} elements over {tiles} tiles, up to {worst} ulp")
-    return n_diff, tiles
+        L1, X1 = bc.chol_inv_tile(A)
+        for kern, L in (("chol_inv_tile", L1), ("chol_tile", bc.chol_tile(A))):
+            held("L", label, f"{kern} f32 L == plain elimination's", L,
+                 plain)
+        # transposed, so that bit_mismatch's "first" is (tile, step k,
+        # column c): X[k, c] is final at substitution step k
+        t0 = time.perf_counter()
+        held("X", label, "chol_inv_tile f32 X == tri_inv_cols(its L)",
+             X1.transpose(1, 2), tile_check.tri_inv_cols(L1).transpose(1, 2))
+        x_s += time.perf_counter() - t0
+    phase(f"  the inverse's check took {x_s:.2f} s of "
+          f"{time.perf_counter() - t_all:.2f} s")
+    for what, name in (("L", "factor parts from the plain elimination"),
+                       ("X", "inverse parts from tri_inv_cols of its L")):
+        tiles, n_diff, worst = tally[what]
+        if worst > 1 or n_diff * 1e4 > tiles:
+            fail(f"kernel f32 {name}: {n_diff} elements over {tiles} "
+                 f"tiles, up to {worst} ulp")
 
 
 def check_kernels(bc, dev):

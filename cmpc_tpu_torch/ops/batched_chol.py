@@ -93,7 +93,12 @@ def chol_tile_ref(A):
 
 def _tri_inv_tile(L):
     """Exact inverse of (B, nb, nb) lower-triangular tiles via the
-    nilpotent Neumann product — log2(nb) squarings of matmuls."""
+    nilpotent Neumann product — log2(nb) squarings of matmuls.  This is the
+    JAX package's ``_tri_inv_tile``, the inverse of its non-TPU branch of
+    ``_chol_inv_tile_dispatch``; the TPU kernel (and so the CUDA kernel)
+    inverts by forward substitution instead, so the two part in rounding
+    and in how far a NaN spreads (plain versions of both substitutions are
+    in tools/tile_check.py)."""
     B, nb, _ = L.shape
     eye = torch.eye(nb, dtype=L.dtype, device=L.device)
     d = torch.diagonal(L, dim1=-2, dim2=-1)
@@ -112,7 +117,12 @@ def _tri_inv_tile(L):
 
 def chol_inv_tile_ref(A):
     """Plain torch version of the tile kernel: (L, L^-1) of (T, nb, nb) SPD
-    tiles."""
+    tiles.  Its X follows the JAX package's CPU branch of
+    ``_chol_inv_tile_dispatch`` (the Neumann product, :func:`_tri_inv_tile`),
+    and the CPU parity tests hold it there; the card's X is the TPU
+    kernel's algorithm, forward substitution, held bit for bit to
+    ``tools/tile_check.tri_inv_cols`` of the kernel's L by
+    ``chip_smoke.py`` phase 3."""
     L = chol_tile_ref(A)
     return L, _tri_inv_tile(L)
 

@@ -147,6 +147,22 @@ def test_cuda_factor_is_the_plain_elimination_bit_for_bit(batch, cuda):
             assert torch.equal(L, plain)
 
 
+@pytest.mark.parametrize("batch", ["1", "7", "256", "1280", "families"])
+def test_cuda_inverse_is_the_column_substitution_bit_for_bit(batch, cuda):
+    """chip_smoke.py phase 3's check of the inverse: the fused kernel's f32
+    X equals tools/tile_check.tri_inv_cols of the kernel's own L, the
+    kernel's column substitution in plain torch, with NaN matching NaN."""
+    if batch == "families":
+        fams = tile_check.tile_families(np.random.default_rng(17), 8)
+        M = np.concatenate([fams[f] for f in tile_check.FAMILIES])
+    else:
+        M = _spd(np.random.default_rng(int(batch)), int(batch), 64)
+    L, X = tbc.chol_inv_tile(torch.tensor(M, dtype=torch.float32,
+                                          device=cuda))
+    m = tile_check.bit_mismatch(X, tile_check.tri_inv_cols(L))
+    assert m["n_diff"] == 0 and m["nan_pattern"], m
+
+
 def test_cuda_chol_tile_rejects_bad_input(cuda):
     good = torch.eye(64, device=cuda).expand(2, 64, 64)
     with pytest.raises(ValueError, match="contiguous"):

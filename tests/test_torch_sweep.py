@@ -507,7 +507,8 @@ def test_step_parity_tools_hold_a_sweep_scenario(x64, tmp_path, capsys,
     same on the CPU).  The recorded trace is the envelope tool's input.
     With --decisions both count the solver's discrete decisions, the same
     in f64.  tools/tile_accuracy_torch.py holds each tile step against
-    f64."""
+    f64, and from the kernel's own L computes the row substitution and the
+    Neumann product beside it and holds its X to the column substitution."""
     import json
 
     def load(name):
@@ -561,5 +562,16 @@ def test_step_parity_tools_hold_a_sweep_scenario(x64, tmp_path, capsys,
     assert acc["X_ref"]["p100"] <= 1e-12
     for key in ("not_finite_tiles", "not_finite_tiles_finite_input"):
         assert acc[key] == dict.fromkeys(
-            ("L_kernel", "X_kernel", "L_ref", "X_ref", "L_f64", "X_f64"), 0)
+            ("L_kernel", "X_kernel", "L_ref", "X_ref", "L_f64", "X_f64",
+             "X_rows", "X_neumann"), 0)
     assert acc["routed_kernel_vs_elimination"]["elements"] == 0
+    # the CPU's "kernel" X is the Neumann product of the same L
+    assert acc["X_neumann"] == acc["X_kernel"]
+    assert acc["X_rows"]["p100"] <= 1e-12
+    inv = acc["inverse_from_kernel_L"]
+    assert (inv["n_K"], inv["n_R"], inv["n_N"]) == (0, 0, 0)
+    assert inv["excluded"] and inv["allowed"] == 20
+    # ... which parts from the column substitution in the last bits only
+    cols = acc["kernel_X_vs_tri_inv_cols"]
+    assert cols["nan_pattern_equal"] and cols["elements"] > 0
+    assert cols["max_ulp"] < float("inf")

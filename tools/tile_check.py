@@ -1,13 +1,18 @@
-"""Tile families and a bit-for-bit comparison for the tile factor.
+"""Tile families, the two substitutions, and a bit-for-bit comparison for
+the tile step.
 
 The tile kernels' f32 factor is the JAX package's ``_chol_tile`` (and the
 plain ``_chol_tile_loop``) bit for bit: one elimination, each update one
-rounding, IEEE divisions and square roots.  :func:`tile_families` gives the
-tiles that hold them to it, the ones the closed loop meets near the pivot
-clamp included, and :func:`bit_mismatch` says where two factors part.
-``chip_smoke.py`` phase 3, tools/tile_accuracy_torch.py, the card tests
-and the CPU tests against the JAX package all use them; no path of the
-port does.
+rounding, IEEE divisions and square roots.  The inverse X = L^-1 has three
+algorithms: the TPU kernel (``_chol_inv_tile_pallas``) substitutes row by
+row, :func:`tri_inv_rows`; the CUDA kernel substitutes column by column
+with fused updates, :func:`tri_inv_cols`; the JAX package's CPU branch and
+the port's plain version take the Neumann product (``_tri_inv_tile``).
+:func:`tile_families` gives the tiles that hold them to each other, the
+ones the closed loop meets near the pivot clamp included, and
+:func:`bit_mismatch` says where two results part.  ``chip_smoke.py``
+phase 3, tools/tile_accuracy_torch.py, the card tests and the CPU tests
+against the JAX package all use them; no path of the port does.
 """
 
 from __future__ import annotations
@@ -63,6 +68,67 @@ def tile_families(rng: np.random.Generator, count: int = 8,
            "negative": negative, "nan": nan}
     return {k: v.astype(np.float32).astype(np.float64) for k, v in
             out.items()}
+
+
+def tri_inv_rows(L: torch.Tensor) -> torch.Tensor:
+    """X = L^-1 of (B, nb, nb) tiles as the TPU kernel computes it: row i
+    of X is (e_i - acc) / L[i, i] with acc = sum over ALL k of
+    where(k != i, L[i, k], 0) * X[k, :], X starting from zeros and filled
+    row by row.
+
+    Products and sums round in the tile's type (never wider: the partial
+    sums' overflow is what makes a tile's X non-finite), each row's sum in
+    order of k.  The TPU's own reduction order is not known, so this order
+    is a deterministic stand-in, to be compared by finiteness and error,
+    not by bits.  The rows k > i of X are still zero when row i is formed,
+    so their products are zeros, or NaN where L[i, k] is not finite (the
+    Pallas factor leaves 0/d_j = NaN above a NaN pivot): they are added
+    after the others, which changes no value, and spread NaN as the kernel
+    does.  L is read whole, upper triangle included."""
+    B, nb, _ = L.shape
+    X = torch.zeros_like(L)
+    acc = torch.zeros_like(L)            # row i: sum over k < i so far
+    eye = torch.eye(nb, dtype=L.dtype, device=L.device)
+    for i in range(nb):
+        upper = (L[:, i, i + 1:, None] * X[:, i + 1:, :]).sum(1)
+        X[:, i, :] = (eye[i] - (acc[:, i, :] + upper)) / L[:, i, i, None]
+        acc[:, i + 1:, :] = acc[:, i + 1:, :] \
+            + L[:, i + 1:, i, None] * X[:, i, None, :]
+    return X
+
+
+def tri_inv_cols(L: torch.Tensor) -> torch.Tensor:
+    """X = L^-1 of (B, nb, nb) lower-triangular tiles as the CUDA kernel
+    (``csrc/chol_tile_common.cuh``, ``inverse_steps16``) computes it, bit
+    for bit: column c starts from v = e_c; at step k, x_k = v_k / d_k is
+    stored for c <= k (zero above), and v_t = fma(-L[t, k], x_k, v_t) for
+    every t > k, in order of k.  The x_k of a column c > k is not stored
+    but still updates v, so a NaN pivot or a non-finite L[t, k] spreads to
+    the columns right of it as in the kernel.
+
+    Each update is formed in float64 and cast once (the product of two f32
+    values is exact there), as ``_chol_tile_loop`` forms its own; it parts
+    from the card's ``fmaf`` only where that double rounding lands on a
+    tie.  The division is taken in float64 and cast, which is the
+    correctly rounded f32 quotient.  The kernel's ``div_by_pivot`` gives
+    the IEEE result for a zero numerator (a zero, or NaN for a NaN pivot),
+    so plain division matches it.  float64 tiles take plain float64
+    arithmetic.  Only the lower triangle of L is read."""
+    B, nb, _ = L.shape
+    wide = torch.float64
+    Lw = L.to(wide)
+    d = torch.diagonal(Lw, dim1=-2, dim2=-1)
+    v = torch.eye(nb, dtype=L.dtype, device=L.device).expand(B, nb, nb) \
+        .clone()                         # v[:, t, c]: row t of column c
+    X = torch.zeros_like(L)
+    upper = torch.ones(nb, nb, dtype=torch.bool, device=L.device).triu()
+    for k in range(nb):
+        xk = (v[:, k, :].to(wide) / d[:, k, None]).to(L.dtype)
+        X[:, k, :] = torch.where(upper[:, k], xk, torch.zeros_like(xk))
+        v[:, k + 1:, :] = (v[:, k + 1:, :].to(wide)
+                           - Lw[:, k + 1:, k, None] * xk[:, None, :].to(wide)
+                           ).to(L.dtype)
+    return X
 
 
 def _ordered(x: torch.Tensor) -> torch.Tensor:
