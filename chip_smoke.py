@@ -65,13 +65,25 @@ line, and no phase carries on on the CPU):
      carry, stepped over ticks pad_ticks - 2 ... pad_ticks + 1: every trace
      field finite, com_ref at the ticks past the end equal to the tables'
      last row, 120 launches of chol_inv_tile per tick;
- 12. the script's total time, one JSON line of kernel results, then the
+ 12. the f64 NLP oracle (ops/oracle: scipy SLSQP on the host, the cost,
+     its autograd gradient, the constraints and their Jacobian on the
+     card) against the condip solve, tests/test_oracle.py's three checks
+     at their bounds: (a) WalkConfig() in f64, a 12-solve warm chain to
+     tick 150 of assets/walk_x0.npz, then the oracle (maxiter 300) from
+     the production warm start: its max_violation < 1e-5 and cost finite,
+     the solve's r_prim < 2.5e-2 and cost < 1e5; (b) the chains to ticks
+     250 and 262 in f32, r_prim within 2.5x the recorded walk's (floor
+     5e-3); (c) the oracle's closed loop for 8 ticks from tick 0 on the
+     4-step gait (maxiter 120), max xy error < 0.05 m and max_violation
+     < 1e-4.  1,560 launches of chol_inv_tile per chain, none from the
+     oracle;
+ 13. the script's total time, one JSON line of kernel results, then the
      final status line.
 
-Each path of phases 4, 5, 6, 8, 9, 10 and 11 is driven with the kernel launch
-counters set to 0 just before it and read just after (in phase 10 by each
-rank, in its own process): every launch counted there came from that
-path.  The factor-only kernel has no caller on any path
+Each path of phases 4, 5, 6, 8, 9, 10, 11 and 12 is driven with the
+kernel launch counters set to 0 just before it and read just after (in
+phase 10 by each rank, in its own process): every launch counted there
+came from that path.  The factor-only kernel has no caller on any path
 (nor has the Pallas kernel it replaces in the JAX package); its count is
 that of phase 3.  Needs no JAX and no network; uses one card (or, in
 phase 10, two where there are).
@@ -85,7 +97,12 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
+# phase 12's SLSQP (scipy) steps through small LAPACK calls, which one
+# BLAS thread runs faster than eight spinning ones; set before numpy
+# loads its BLAS
+os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
+
+import numpy as np  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -106,6 +123,9 @@ N_RANKS, T_RANKS = 256, 200     # phase 10(b): phase 6's batch, 200 ticks
 RANKS_LANE_TOL = 1e-10          # phase 10(a), f64: test_cuda_lanes_do_not_mix
 RANKS_AGREE = 3e-4              # __graft_entry__.py:137, criterion 3
 RANK_TIMEOUT = 400
+ORACLE_TICK = 150               # phase 12 (a): tests/test_oracle.py
+LANDING_TICKS = (250, 262)      # phase 12 (b)
+T_ORACLE = 8                    # phase 12 (c): the oracle walk's ticks
 
 # one NVIDIA H100 SXM (NVIDIA's data sheet): device memory rate and the
 # float32 rate outside the tensor cores
@@ -762,6 +782,144 @@ def table_end_phase(dev, bc):
     return wall
 
 
+def warm_solve_at(dev, cfg, tick, dtype):
+    """tests/test_oracle.py's production-regime solve at `tick`: the
+    recorded walk's measured states (assets/walk_x0.npz) replayed through
+    an N_WARM-solve chain ending at the timed tick, B = 1.  Returns
+    (state, info, params, rec)."""
+    import torch
+    from cmpc_tpu_torch.config import nominal_scenario
+    from cmpc_tpu_torch.ocp import assemble
+    from cmpc_tpu_torch.ops import sqp
+    from cmpc_tpu_torch.plan import com_ref as crm, footsteps, timing as tm
+
+    timing = tm.build_timing(cfg)
+    sc = nominal_scenario(cfg, push=(0.0, 0.0, 0.0), push_window=(0, 0),
+                          device=dev, dtype=dtype)
+    plan = footsteps.plan_footsteps(sc.vref, cfg, timing, sc.foot_y)
+    pl, pr = footsteps.contact_pose_refs(plan, timing)
+    cref = crm.build_com_ref(plan, cfg, timing, sc.foot_y)
+    refs = assemble.RefArrays(com=cref, pose_ref_l=pl, pose_ref_r=pr)
+    rec = np.load(os.path.join(HERE, "assets", "walk_x0.npz"))
+    x0s = torch.tensor(rec["x0"], dtype=dtype, device=dev)
+
+    def params_at(tk):
+        return assemble.gather_params(tk, x0s[tk][None], refs, timing, cfg,
+                                      sc.k1, sc.k2, sc.mpc_mass)
+
+    state = sqp.init_solver_state(cfg, x0s[tick - N_WARM][None],
+                                  mass=sc.mpc_mass)
+    for tk in range(tick - N_WARM, tick):
+        state, _ = sqp.solve_mpc(state, params_at(tk), cfg)
+    params = params_at(tick)
+    state, info = sqp.solve_mpc(state, params, cfg)
+    return state, info, params, rec
+
+
+def oracle_phase(dev, bc):
+    """Phase 12: tests/test_oracle.py's three checks through the port's f64
+    NLP oracle (ops/oracle, scipy SLSQP on the host, its functions on the
+    card), held to that file's bounds."""
+    import dataclasses
+
+    import torch
+    from cmpc_tpu_torch.config import WalkConfig, nominal_scenario
+    from cmpc_tpu_torch.ocp import problem
+    from cmpc_tpu_torch.ops import oracle, sqp
+
+    cfg = WalkConfig()
+    per_chain = 5 * cfg.pdip_iters * cfg.sqp_iters * (N_WARM + 1)
+    res = {}
+    t_phase = time.perf_counter()
+
+    def launches_since(n0, want, what):
+        n = bc.LAUNCHES["chol_inv_tile"] - n0
+        if n != want:
+            fail(f"phase 12 {what}: kernel launches {n} != {want}")
+        return n
+
+    # (a) test_sqp_tracks_oracle_cost_and_feasibility: f64, tick 150
+    n0 = bc.LAUNCHES["chol_inv_tile"]
+    t0 = time.perf_counter()
+    state, info, params, _ = warm_solve_at(dev, cfg, ORACLE_TICK,
+                                           torch.float64)
+    chain_s = time.perf_counter() - t0
+    n_a = launches_since(n0, per_chain, "(a) warm chain")
+    state0 = sqp.init_solver_state(cfg, params.x0, mass=params.mass)
+    U_ws = sqp.prep_warmstart(state0, params, cfg)
+    X_ws = sqp._rollout_X(params.x0, U_ws, params, cfg)
+    z0 = problem.join_z(X_ws, U_ws)[0].cpu().numpy()
+    n0 = bc.LAUNCHES["chol_inv_tile"]
+    t0 = time.perf_counter()
+    z_star, oinfo = oracle.solve_nlp(z0, params, cfg, maxiter=300)
+    oracle_s = time.perf_counter() - t0
+    launches_since(n0, 0, "(a) oracle")
+    if not (np.isfinite(z_star).all()
+            and bool(torch.isfinite(state.z).all())):
+        fail("phase 12 (a): the oracle's or the solve's z is not finite")
+    cost_sqp = float(problem.cost_value(state.z, params, cfg)[0])
+    cost_star, r_prim = oinfo["cost"], float(info.r_prim[0])
+    phase(f"  (a) tick {ORACLE_TICK}, f64, {z_star.size} variables: oracle "
+          f"{oracle_s:.1f} s, nit {oinfo['nit']}, status {oinfo['status']}, "
+          f"max_violation {oinfo['max_violation']:.3e} (< 1e-5), cost_star "
+          f"{cost_star:.6e} (finite); SQP r_prim {r_prim:.4e} (< 2.5e-2), "
+          f"cost_sqp {cost_sqp:.6e} (< 1e5); warm chain {chain_s:.2f} s, "
+          f"{n_a} launches")
+    if not (oinfo["max_violation"] < 1e-5 and r_prim < 2.5e-2
+            and np.isfinite(cost_star) and cost_sqp < 1e5):
+        fail("phase 12 (a): the solve at tick 150 leaves test_oracle.py's "
+             "bounds")
+    res["a"] = {"tick": ORACLE_TICK, "oracle_s": oracle_s,
+                "nit": int(oinfo["nit"]), "status": int(oinfo["status"]),
+                "max_violation": oinfo["max_violation"],
+                "cost_star": cost_star, "cost_sqp": cost_sqp,
+                "r_prim": r_prim, "launches": n_a}
+
+    # (b) test_landing_solves_meet_corpus_envelope: f32
+    res["b"] = []
+    for tick in LANDING_TICKS:
+        n0 = bc.LAUNCHES["chol_inv_tile"]
+        state, info, _, rec = warm_solve_at(dev, cfg, tick, torch.float32)
+        n_b = launches_since(n0, per_chain, f"(b) tick {tick}")
+        if not bool(torch.isfinite(state.z).all()):
+            fail(f"phase 12 (b): the solve's z at tick {tick} is not finite")
+        r_prim = float(info.r_prim[0])
+        bound_b = max(2.5 * float(rec["r_prim"][tick]), 5e-3)
+        phase(f"  (b) tick {tick}, f32: r_prim {r_prim:.4e} (< {bound_b:.4e})"
+              f", {n_b} launches")
+        if not r_prim < bound_b:
+            fail(f"phase 12 (b): tick {tick} leaves the corpus envelope")
+        res["b"].append({"tick": tick, "r_prim": r_prim, "bound": bound_b,
+                         "launches": n_b})
+
+    # (c) test_oracle_rollout_short_segment: f64, the 4-step gait
+    cfg4 = dataclasses.replace(cfg, num_steps=4)
+    sc = nominal_scenario(cfg4, push=(0.0, 0.0, 0.0), push_window=(0, 0),
+                          device=dev, dtype=torch.float64)
+    n0 = bc.LAUNCHES["chol_inv_tile"]
+    t0 = time.perf_counter()
+    out = oracle.rollout_oracle(
+        sc, cfg4, T_sim=T_ORACLE, t0=0,
+        solver=lambda z, p: oracle.solve_nlp(z, p, cfg4, maxiter=120))
+    walk_s = time.perf_counter() - t0
+    launches_since(n0, 0, "(c)")
+    com = out["com_pos"]
+    if com.shape != (T_ORACLE, 3) or not np.isfinite(com).all():
+        fail(f"phase 12 (c): oracle walk malformed: shape {com.shape}")
+    err = float(np.abs(com[:, :2] - out["com_ref"][:, :2]).max())
+    viol = float(np.asarray(out["max_violation"]).max())
+    phase(f"  (c) oracle walk, {T_ORACLE} ticks from 0, num_steps 4, maxiter "
+          f"120: err {err:.3e} m (< 0.05), max_violation {viol:.3e} (< 1e-4)"
+          f", {walk_s:.1f} s, 0 launches")
+    if not (err < 0.05 and viol < 1e-4):
+        fail("phase 12 (c): the oracle walk leaves test_oracle.py's bounds")
+    res["c"] = {"ticks": T_ORACLE, "err": err, "max_violation": viol,
+                "s": walk_s}
+    res["phase_s"] = time.perf_counter() - t_phase
+    phase(f"  phase 12 {res['phase_s']:.1f} s")
+    return res
+
+
 def standing_problem(cfg, B, seed, dev):
     """B copies of the standing double-support problem of
     tests/test_ocp_solver.py::test_mpc_solve_standing (CoM at height h over
@@ -1208,6 +1366,12 @@ def main():
     end_s, n_end = counted("phase 11 past the end of the tables",
                            lambda: table_end_phase(dev, bc))
 
+    # phase 12: the f64 NLP oracle against the condip solve; the oracle
+    # itself launches no kernel, the solves it is checked against do
+    oracle_res, n_oracle = counted(
+        "phase 12 NLP oracle against the condip solve",
+        lambda: oracle_phase(dev, bc))
+
     total_s = time.perf_counter() - t_script
     phase(f"chip_smoke.py total {total_s:.1f} s (limit 1200 s) [{smi_line}]")
     print(json.dumps({"kernels": [
@@ -1215,13 +1379,15 @@ def main():
          "source": "cmpc_tpu_torch/csrc/chol_inv_tile.cu",
          "replaces": "cmpc_tpu/ops/batched_chol.py:141",
          "launches": (n_solve + n_walk + n_sweep + n_wb
-                      + ranks["dryrun_launches"] + n_ranks + n_end),
+                      + ranks["dryrun_launches"] + n_ranks + n_end
+                      + n_oracle),
          "launches_by_path": {"production_solve": n_solve,
                               "walk": n_walk, "sweep": n_sweep,
                               "wholebody_walk": n_wb, "admm_solve": 0,
                               "dryrun_multichip": ranks["dryrun_launches"],
                               "sweep_across_ranks": n_ranks,
-                              "past_table_end": n_end},
+                              "past_table_end": n_end,
+                              "oracle_checks": n_oracle},
          **kres["chol_inv_tile"], "library_calls": 2},
         {"name": "chol_tile", "route": "cuda",
          "source": "cmpc_tpu_torch/csrc/chol_tile.cu",
@@ -1240,7 +1406,8 @@ def main():
         "ismpc_ticks_per_s_b1": ismpc_ticks_per_s,
         "wholebody_ticks_per_s_b1": wb_ticks_per_s,
         "admm_solve_ms_b256": admm_ms, "sweep_across_ranks": ranks,
-        "past_table_end_s": end_s, "total_s": total_s}),
+        "past_table_end_s": end_s, "oracle": oracle_res,
+        "total_s": total_s}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -369,6 +369,28 @@ def test_cuda_lanes_do_not_mix(cuda):
     entry.dryrun_one_device(cuda, torch.float64, lane_tol=1e-10)
 
 
+def test_cuda_oracle_functions_match_cpu(cuda):
+    """The oracle's cost, gradient, constraints and Jacobian (ops/oracle
+    _fns) on the card against the same on the CPU, f64, at tick 150's
+    production warm start (WalkConfig(), 540 variables): within 1e-12 of
+    the largest |value|."""
+    from cmpc_tpu_torch.ocp import problem
+    from cmpc_tpu_torch.ops import oracle
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = _recorded_params(dev, [150])
+        st = sqp.init_solver_state(CFG, p.x0, mass=p.mass)
+        U = sqp.prep_warmstart(st, p, CFG)
+        z = problem.join_z(sqp._rollout_X(p.x0, U, p, CFG), U)[0]
+        out[dev.type] = [f(z, p).cpu().numpy() for f in oracle._fns(CFG)]
+    for name, got, want in zip(("cost", "grad", "con", "jac"), out["cuda"],
+                               out["cpu"]):
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, rtol=1e-12,
+                                   atol=1e-12 * np.abs(want).max(),
+                                   err_msg=name)
+
+
 # ------------------------------------------------------------- whole body
 
 ID_SETTINGS = wholebody_loop.ADMMSettings(iters=90, rho=10.0, pdas_rounds=2,
