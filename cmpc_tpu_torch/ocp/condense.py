@@ -22,6 +22,7 @@ import torch
 from cmpc_tpu_torch.config import WalkConfig
 from cmpc_tpu_torch.consts import const
 from cmpc_tpu_torch.ocp import problem
+from cmpc_tpu_torch.runtime import spans
 
 W_ELASTIC = 1e6
 SOFT_MARGIN = 1e-2
@@ -151,6 +152,7 @@ def _block_rows(mu: float):
         np.concatenate([z4, blkZ], axis=1)], axis=0)
 
 
+@spans.spanned("condense.build")
 def build(z, params: problem.MPCParams, cfg: WalkConfig, prox, w_prox_u,
           lam_soft=None, soft: bool = True,
           structured: bool = False) -> CondensedQP:

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from cmpc_tpu_torch.consts import const
 from cmpc_tpu_torch.ops.batched_chol import spd_inverse64
+from cmpc_tpu_torch.runtime import spans
 
 
 class PDIPSettings(NamedTuple):
@@ -64,6 +65,7 @@ def _cho_factor(M):
                        torch.full_like(L, float("nan")), L)
 
 
+@spans.spanned("pdip.pdip_solve")
 def pdip_solve(H, g, C, d, settings: PDIPSettings = PDIPSettings(),
                C_blk=None, d_blk=None) -> PDIPResult:
     """One batch of QP solves.  H (B, n, n), g (B, n), C (B, m_d, n),
@@ -187,6 +189,9 @@ def pdip_solve(H, g, C, d, settings: PDIPSettings = PDIPSettings(),
         # (already converged) iterate instead of poisoning it
         ok = (torch.isfinite(dv).all(1) & torch.isfinite(dw).all(1)
               & torch.isfinite(dlam).all(1))
+        if spans.enabled():
+            spans.add("pdip.guarded", (~ok).sum())
+            spans.add("pdip.steps", B)
         a_p = torch.where(ok, a_p, 0.0)
         a_d = torch.where(ok, a_d, 0.0)
         dv = torch.nan_to_num(dv)

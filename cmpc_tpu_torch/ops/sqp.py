@@ -26,6 +26,7 @@ from cmpc_tpu_torch.ocp import condense, problem
 from cmpc_tpu_torch.ops import blocktri
 from cmpc_tpu_torch.ops.admm import ADMMSettings, admm_solve
 from cmpc_tpu_torch.ops.pdip import PDIPSettings, pdip_solve
+from cmpc_tpu_torch.runtime import spans
 
 LAM_CAP = 1e4
 ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.0)
@@ -129,11 +130,12 @@ def prep_warmstart(state: SolverState, params: problem.MPCParams,
 def solve_mpc(state: SolverState, params: problem.MPCParams,
               cfg: WalkConfig):
     """One batched MPC solve; returns (new SolverState, SolveInfo)."""
-    if cfg.mpc_solver == "condip":
-        return _solve_mpc_condip(state, params, cfg)
-    if cfg.mpc_solver == "admm":
-        return _solve_mpc_admm(state, params, cfg)
-    raise ValueError(f"unknown mpc_solver {cfg.mpc_solver!r}")
+    with spans.span("sqp.solve_mpc"):
+        if cfg.mpc_solver == "condip":
+            return _solve_mpc_condip(state, params, cfg)
+        if cfg.mpc_solver == "admm":
+            return _solve_mpc_admm(state, params, cfg)
+        raise ValueError(f"unknown mpc_solver {cfg.mpc_solver!r}")
 
 
 def _solve_mpc_condip(state: SolverState, params: problem.MPCParams,
@@ -151,26 +153,27 @@ def _solve_mpc_condip(state: SolverState, params: problem.MPCParams,
     w_prox_u = w_prox_u.reshape(-1)
     settings = PDIPSettings(iters=cfg.pdip_iters, refine=cfg.pdip_refine)
 
-    U = prep_warmstart(state, params, cfg)
+    with spans.span("sqp.warm_start"):
+        U = prep_warmstart(state, params, cfg)
 
-    nA = len(ALPHAS)
-    # the line search evaluates all step lengths at once as a batch of
-    # nA * B candidates (alpha-major)
-    params_rep = problem.MPCParams(*(
-        f.repeat(nA, *([1] * (f.dim() - 1))) for f in params))
+        nA = len(ALPHAS)
+        # the line search evaluates all step lengths at once as a batch of
+        # nA * B candidates (alpha-major)
+        params_rep = problem.MPCParams(*(
+            f.repeat(nA, *([1] * (f.dim() - 1))) for f in params))
 
-    def merit_of(Xc, Uc):
-        zc = problem.join_z(Xc, Uc)
-        c = problem.constraints(zc, params_rep, cfg)[:, n_eq:]
-        viol = ((c - u_c[n_eq:]).clamp_min(0.0)
-                + (l_c[n_eq:] - c).clamp_min(0.0)).sum(1)
-        return problem.cost_value(zc, params_rep, cfg) \
-            + condense.W_ELASTIC * viol
+        def merit_of(Xc, Uc):
+            zc = problem.join_z(Xc, Uc)
+            c = problem.constraints(zc, params_rep, cfg)[:, n_eq:]
+            viol = ((c - u_c[n_eq:]).clamp_min(0.0)
+                    + (l_c[n_eq:] - c).clamp_min(0.0)).sum(1)
+            return problem.cost_value(zc, params_rep, cfg) \
+                + condense.W_ELASTIC * viol
 
-    ns = condense.n_slack(cfg)
-    lam_soft = state.y[:, n_eq:n_eq + ns].clamp(0.0, LAM_CAP)
+        ns = condense.n_slack(cfg)
+        lam_soft = state.y[:, n_eq:n_eq + ns].clamp(0.0, LAM_CAP)
 
-    X = _rollout_X(params.x0, U, params, cfg)
+        X = _rollout_X(params.x0, U, params, cfg)
     prox = params.x0.new_full((B,), cfg.condip_prox)
     r_dual = params.x0.new_zeros(B)
     rows = torch.arange(B, device=dev)
@@ -186,20 +189,24 @@ def _solve_mpc_condip(state: SolverState, params: problem.MPCParams,
         lam_new = torch.nan_to_num(res.lam[:, :ns] * qp.row_scale[:, :ns])
         lam_soft = lam_new.clamp(0.0, LAM_CAP)
 
-        U_cands = torch.stack([U + a * dU for a in ALPHAS])      # (nA,B,N,32)
-        U_flat = U_cands.reshape(nA * B, N, 32)
-        X_flat = _rollout_X(params_rep.x0, U_flat, params_rep, cfg)
-        merits = merit_of(X_flat, U_flat).reshape(nA, B)
-        best = torch.argmin(torch.nan_to_num(merits, nan=float("inf")),
-                            dim=0)                                # (B,)
-        U = U_cands[best, rows]
-        X = X_flat.reshape(nA, B, N + 1, 20)[best, rows]
-        rejected = best == nA - 1
-        small = best <= 1           # alpha >= 0.5 accepted
-        prox = torch.where(rejected, prox * 16.0,
-                           torch.where(small,
-                                       (prox / 4.0).clamp_min(
-                                           cfg.condip_prox), prox))
+        with spans.span("sqp.line_search"):
+            U_cands = torch.stack([U + a * dU for a in ALPHAS])  # (nA,B,N,32)
+            U_flat = U_cands.reshape(nA * B, N, 32)
+            X_flat = _rollout_X(params_rep.x0, U_flat, params_rep, cfg)
+            merits = merit_of(X_flat, U_flat).reshape(nA, B)
+            best = torch.argmin(torch.nan_to_num(merits, nan=float("inf")),
+                                dim=0)                            # (B,)
+            U = U_cands[best, rows]
+            X = X_flat.reshape(nA, B, N + 1, 20)[best, rows]
+            rejected = best == nA - 1
+            small = best <= 1           # alpha >= 0.5 accepted
+            prox = torch.where(rejected, prox * 16.0,
+                               torch.where(small,
+                                           (prox / 4.0).clamp_min(
+                                               cfg.condip_prox), prox))
+            if spans.enabled():
+                spans.add("line_search.rejected", rejected.sum())
+                spans.add("line_search.rows", B)
         r_dual = res.r_dual
 
     z = problem.join_z(X, U)

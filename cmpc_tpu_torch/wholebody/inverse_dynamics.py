@@ -28,6 +28,7 @@ from cmpc_tpu_torch.ops.admm import ADMMSettings
 from cmpc_tpu_torch.ops.id_qp import IDDynamics, IDTask, solve_id_qp
 from cmpc_tpu_torch.rbd import algorithms as rbd
 from cmpc_tpu_torch.rbd.urdf import RobotModel
+from cmpc_tpu_torch.runtime import spans
 from cmpc_tpu_torch.utils.rotations import rotvec_difference
 from cmpc_tpu_torch.wholebody.state import WBState
 
@@ -71,6 +72,7 @@ def redundant_selection(model: RobotModel,
     return torch.diag(torch.as_tensor(d, dtype=dtype, device=device))
 
 
+@spans.spanned("wholebody.joint_torques")
 def joint_torques(model: RobotModel, q: rbd.RobotQ, qv,
                   desired: WBDesired, current: WBState,
                   contact_l, contact_r, joint_sel=None,

@@ -29,6 +29,7 @@ import torch
 from cmpc_tpu_torch.consts import const
 from cmpc_tpu_torch.rbd import algorithms as rbd
 from cmpc_tpu_torch.rbd.urdf import RobotModel
+from cmpc_tpu_torch.runtime import spans
 from cmpc_tpu_torch.utils.rotations import rotvec_to_matrix
 
 
@@ -139,6 +140,7 @@ def _impulse_substep(model, q, qv, tau, ext_wrench, corners,
     return q, qv_new, pts, lam.reshape(B, 8, 3) / h
 
 
+@spans.spanned("wholebody.plant_step")
 def wb_plant_step(model: RobotModel, state: WBPlantState, tau,
                   ext_force=None, ext_torque=None,
                   dt: float = 0.01, substeps: int = 5,

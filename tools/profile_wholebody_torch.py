@@ -11,9 +11,11 @@ batch size; prints one JSON object per batch size:
     synchronize before and after sqp.solve_mpc, wholebody.joint_torques and
     wholebody.wb_plant_step (serialized, so the tick is a little slower
     than above);
-  * the device's side: torch.profiler over PROFILED ticks — device-busy ms
-    per tick, kernel launches per tick, split by the part whose host range
-    made them, and the kernels that take most of the device time;
+  * the device's side: torch.profiler over PROFILED ticks with the
+    program's spans recording (runtime/spans.py) — device-busy ms per tick,
+    kernel launches per tick, split by the part whose span (sqp.solve_mpc,
+    wholebody.joint_torques, wholebody.plant_step) held the launch call,
+    and the kernels that take most of the device time;
   * the plant's projected Gauss-Seidel (15 sweeps of 24 sequential rows
     in each of 10 substeps): the plant's serialized ms and launches again
     with pgs_iters = 0, and the difference.
@@ -39,15 +41,19 @@ import torch
 LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 PARTS = ("mpc", "id_qp", "plant")
+# the program's span of each part of the tick
+PART_SPANS = {"sqp.solve_mpc": "mpc", "wholebody.joint_torques": "id_qp",
+              "wholebody.plant_step": "plant"}
 
 
 def profile_batch(n, t_start, ticks, profiled, dev, card):
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from cmpc_tpu_torch.config import WalkConfig, nominal_scenario
     from cmpc_tpu_torch.ops import batched_chol as bc
     from cmpc_tpu_torch.parallel import mesh as pm
     from cmpc_tpu_torch.rbd.urdf import load_hrp4
+    from cmpc_tpu_torch.runtime import spans
     from cmpc_tpu_torch.sim import wholebody_loop as wbl
 
     cfg = WalkConfig()
@@ -120,32 +126,23 @@ def profile_batch(n, t_start, ticks, profiled, dev, card):
         return tick, {k: v / ticks * 1e3 for k, v in part_s.items()}
 
     def profiled_run(run):
-        """(profiler, tick ms, launches per tick by part): the parts are
-        named host ranges, and each launch goes to the part whose range
-        holds its start."""
-        def ranged(part, fn):
-            def call(*a, **k):
-                with record_function(f"part:{part}"):
-                    return fn(*a, **k)
-            return call
-
-        patched(ranged)
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                tick = run(profiled)
-        finally:
-            restore()
-        spans = sorted((e.time_range.start, e.time_range.end, e.name[5:])
-                       for e in prof.events() if e.name.startswith("part:")
+        """(profiler, tick ms, launches per tick by part): each launch goes
+        to the part whose span holds its start."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof, \
+                spans.recording():
+            tick = run(profiled)
+        parts = sorted((e.time_range.start, e.time_range.end,
+                        PART_SPANS[e.name]) for e in prof.events()
+                       if e.name in PART_SPANS
                        and e.device_type.name == "CPU")
-        starts = [s[0] for s in spans]
+        starts = [s[0] for s in parts]
         by_part = dict.fromkeys(PARTS + ("rest",), 0)
         for e in prof.events():
             if e.name in LAUNCH_NAMES:
                 i = bisect.bisect_right(starts, e.time_range.start) - 1
-                inside = i >= 0 and e.time_range.start <= spans[i][1]
-                by_part[spans[i][2] if inside else "rest"] += 1
+                inside = i >= 0 and e.time_range.start <= parts[i][1]
+                by_part[parts[i][2] if inside else "rest"] += 1
         return prof, tick, {k: v / profiled for k, v in by_part.items()}
 
     tick_sync_ms, part_ms = serialized(run)
@@ -153,10 +150,11 @@ def profile_batch(n, t_start, ticks, profiled, dev, card):
     _, part_ms_no_gs = serialized(run_no_gs)
     _, _, by_part_no_gs = profiled_run(run_no_gs)
     evs = prof.key_averages()
-    # the parts' ranges are mirrored on the device's timeline: not kernels
+    # the program's spans are mirrored on the device's timeline: not kernels
+    span_names = {e.key for e in evs if e.is_user_annotation}
     dev_us = {e.key: e.device_time_total for e in evs
               if e.device_time_total > 0 and e.device_type.name == "CUDA"
-              and not e.key.startswith("part:")}
+              and e.key not in span_names}
     counts = {e.key: e.count for e in evs}
     busy_ms = sum(dev_us.values()) / 1e3 / profiled
     launches = sum(c for k, c in counts.items() if k in LAUNCH_NAMES)
