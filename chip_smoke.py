@@ -8,9 +8,9 @@ line, and no phase carries on on the CPU):
   1. device check — needs torch.cuda; prints the card's name and power
      limit as nvidia-smi reports them;
   2. kernel build — compiles csrc/chol_inv_tile.cu and csrc/chol_tile.cu
-     (both include csrc/chol_tile_common.cuh) with nvcc (sm_90a), both at
-     once, and reads ptxas' report, which is kept beside each library:
-     registers per kernel, no spills;
+     (both include csrc/chol_tile_common.cuh) and csrc/chol_solve.cu with
+     nvcc (sm_90a), all at once, and reads ptxas' report, which is kept
+     beside each library: registers per kernel, no spills;
   3. kernel vs plain — the tile Cholesky+inverse kernel (chol_inv_tile)
      and the factor-only kernel (chol_tile) against their plain torch
      versions on random SPD tiles (f32 at rtol=atol=2e-5, f64 against
@@ -30,9 +30,16 @@ line, and no phase carries on on the CPU):
      each kernel's time at 1, 256, 1024 and 1280 tiles (f32) beside its
      bound, with its plain version's and the library calls' at 256
      (torch.linalg.cholesky; with solve_triangular for the fused kernel);
+     the block substitution kernel (chol_solve) against its plain version
+     at B = 1, 7 and 2048 on 320 x 320 systems (f32 within 2e-6 of |x|'s
+     largest, f64 within 1e-14), a NaN tile poisoning its scenario only,
+     and its time at (2048, 320) f32 beside its bound, the plain version's
+     and torch.cholesky_solve's;
   4. production-state solve — 256 recorded walk states
      (assets/walk_x0.npz) replayed as bench.py does: 12-solve warm chain,
-     then one timed batched solve, held to bench.py's accuracy gate;
+     then one timed batched solve, held to bench.py's accuracy gate; 96
+     substitutions per solve (the Newton step applies the factor, it
+     forms no inverse);
   5. closed-loop walk — 500 ticks of the nominal walk (B=1, f32), held to
      the tracking/solver envelopes of tests/test_closed_loop.py;
   6. sweep — 256 differing scenarios (parallel/mesh.make_batch, seed 7)
@@ -92,6 +99,7 @@ phase 10, two where there are).
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -428,6 +436,67 @@ def check_kernels(bc, dev):
     return out
 
 
+SOLVE_B, SOLVE_N = 2048, 320   # the benchmark's batch, the Newton matrix
+
+
+def check_solve_kernel(bc, dev):
+    """Phase 3, the substitution kernel: against its plain version, a NaN
+    tile, and its times at (SOLVE_B, SOLVE_N) f32."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def system(B, dtype):
+        A = torch.randn(B, SOLVE_N, SOLVE_N, generator=g, device=dev,
+                        dtype=torch.float64) / SOLVE_N ** 0.5
+        M = A @ A.transpose(1, 2) + 0.1 * torch.eye(
+            SOLVE_N, dtype=torch.float64, device=dev)
+        b = torch.randn(B, SOLVE_N, generator=g, device=dev,
+                        dtype=torch.float64)
+        L, Dinv = bc.blocked_cholesky(M.to(dtype), 64)
+        return M.to(dtype), L, Dinv, b.to(dtype)
+
+    errs = {}
+    for dtype, tol in ((torch.float32, 2e-6), (torch.float64, 1e-14)):
+        for B in (1, 7, SOLVE_B):
+            _, L, Dinv, b = system(B, dtype)
+            xr = bc.chol_solve_ref(L, Dinv, b)
+            err = float((bc.chol_solve(L, Dinv, b) - xr).abs().max()
+                        / xr.abs().max())
+            if not err < tol:
+                fail(f"chol_solve {dtype} disagrees with its plain version "
+                     f"at B={B}: {err:.3e} of |x|'s largest")
+            errs[f"{str(dtype)[6:]}_B{B}"] = err
+    _, L, Dinv, b = system(5, torch.float32)
+    clean = bc.chol_solve(L, Dinv, b)
+    Dinv[1, 2, 10, 5] = float("nan")
+    L[3, 300, 70] = float("nan")
+    x = bc.chol_solve(L, Dinv, b)
+    if (torch.isfinite(x[[1, 3]]).any()
+            or not torch.equal(x[[0, 2, 4]], clean[[0, 2, 4]])):
+        fail("chol_solve: a NaN tile does not poison its scenario alone")
+    phase("  chol_solve vs plain (max |err| / max |x|): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + "; NaN tile held")
+
+    M, L, Dinv, b = system(SOLVE_B, torch.float32)
+    Lfull = torch.linalg.cholesky(M)
+    out = {"max_rel_err": errs,
+           "ms": min(graph_ms(lambda: bc.chol_solve(L, Dinv, b), 20, 10)
+                     for _ in range(2)),
+           "plain_ms": cuda_ms(lambda: bc.chol_solve_ref(L, Dinv, b), 10),
+           "library_ms": cuda_ms(
+               lambda: torch.cholesky_solve(b[..., None], Lfull), 10),
+           "bound_ms": SOLVE_B * 15 * 64 * 64 * 4 / PEAK_BYTES_PER_S * 1e3,
+           "bound_by": "bytes"}
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    phase(f"  chol_solve ({SOLVE_B},{SOLVE_N}) f32: kernel {out['ms']:.4f} "
+          f"ms, plain {out['plain_ms']:.4f} ms, library (cholesky_solve) "
+          f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms by "
+          f"bytes ({100 * out['share_of_bound']:.1f}%)")
+    if not out["ms"] < out["plain_ms"]:
+        fail("chol_solve is not faster than its plain version")
+    return out
+
+
 def production_problem(dev, cfg=None):
     """The replay of bench.py: 256 recorded production-walk ticks spread
     over the walking phase, for WalkConfig() or the given configuration.
@@ -492,6 +561,7 @@ def production_solve(dev, bc, card):
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = bc.LAUNCHES["chol_inv_tile"]
+    solves = bc.LAUNCHES["chol_solve"]
 
     r_prim = info.r_prim.cpu().numpy().astype(np.float64)
     lyap = info.lyap_violation.cpu().numpy().astype(np.float64)
@@ -512,8 +582,14 @@ def production_solve(dev, bc, card):
     per_solve = 5 * cfg.pdip_iters * cfg.sqp_iters
     if launches != per_solve * (N_WARM + 1):
         fail(f"kernel launches {launches} != {per_solve} x {N_WARM + 1}")
+    per_solve_sub = 2 * (1 + cfg.pdip_refine) * cfg.pdip_iters \
+        * cfg.sqp_iters
+    if solves != per_solve_sub * (N_WARM + 1):
+        fail(f"chol_solve launches {solves} != {per_solve_sub} x "
+             f"{N_WARM + 1}")
     phase(f"  kernel launches {launches} = {per_solve} x {N_WARM + 1} "
-          f"batched solves; warm chain {warm_s:.3f} s")
+          f"batched solves, chol_solve {solves} = {per_solve_sub} x "
+          f"{N_WARM + 1}; warm chain {warm_s:.3f} s")
     phase(f"  {B / solve_s:.1f} solves/s at B={B} ({solve_s * 1e3:.2f} ms "
           f"per batched solve) on {card}")
     return B / solve_s
@@ -1281,7 +1357,7 @@ def main():
     print(smi_line, flush=True)
 
     # phase 2: build, one nvcc per source, all started together
-    kernels = ("chol_inv_tile", "chol_tile")
+    kernels = ("chol_inv_tile", "chol_tile", "chol_solve")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(cuda_build.load_library, kernels))
@@ -1297,7 +1373,7 @@ def main():
                  f"cannot be checked")
         for u in usage:
             # the mangled name carries the element type: If = float
-            dtype = "f32" if "IfLb" in u["entry"] else "f64"
+            dtype = "f32" if re.search(r"If(Lb|E)", u["entry"]) else "f64"
             resources[f"{k}_{dtype}"] = {
                 "registers": u["registers"], "spill_bytes": u["spill_bytes"],
                 "stack_bytes": u["stack_bytes"]}
@@ -1312,6 +1388,7 @@ def main():
     for k in kernels:
         bc.LAUNCHES[k] = 0
     kres = check_kernels(bc, dev)
+    sres = check_solve_kernel(bc, dev)
     phase3_chol_tile = bc.LAUNCHES["chol_tile"]
 
     # phases 4-6 and 8: the main paths, each counted on its own
@@ -1331,6 +1408,7 @@ def main():
     solves_per_s, n_solve = counted(
         "phase 4 production-state solve",
         lambda: production_solve(dev, bc, card))
+    n_solve_sub = bc.LAUNCHES["chol_solve"]
     ticks_per_s, n_walk = counted("phase 5 closed-loop walk",
                                   lambda: closed_loop_walk(dev, card))
     (sweep_rate, fall_rate, rmse_alive), n_sweep = counted(
@@ -1397,7 +1475,14 @@ def main():
                  "has no caller); launches are the wrapper's calls in phase "
                  "3, where a call captured into a CUDA graph counts once "
                  "and the graph's replays are not counted",
-         **kres["chol_tile"], "library_calls": 1}],
+         **kres["chol_tile"], "library_calls": 1},
+        {"name": "chol_solve", "route": "cuda",
+         "source": "cmpc_tpu_torch/csrc/chol_solve.cu", "replaces": None,
+         "note": "replaces no TPU kernel: on the card the interior point "
+                 "applies the blocked factor by substitution instead of "
+                 "forming the Newton inverse",
+         "launches_production_solve": n_solve_sub,
+         **sres, "library_calls": 1}],
         "card": smi_line, "build_s": build_s, "resources": resources,
         "solves_per_s_b256": solves_per_s,
         "walk_ticks_per_s_b1": ticks_per_s,

@@ -19,9 +19,16 @@ like ``_chol_tile_dispatch`` in the JAX package it has no caller on any
 path.  Both kernels share ``csrc/chol_tile_common.cuh`` and take a row and
 a tile stride per tensor: :func:`chol_inv_tile_into` / :func:`chol_tile_into`
 hand them views, so :func:`blocked_cholesky` factors each diagonal block
-where it lies and has L and the tile inverse written into place.  Matrix
-products are plain ``torch.matmul``; the callers pin
-full-f32 matmuls (TF32 off).
+where it lies and has L and the tile inverse written into place.
+
+:func:`chol_solve` applies the blocked factor to a right-hand side by
+block forward and back substitution: on a CUDA tensor the hand-written
+kernel ``csrc/chol_solve.cu`` (it replaces no TPU kernel; the card's
+interior point takes it in place of the explicit inverse), on a CPU tensor
+its plain version :func:`chol_solve_ref`.  :func:`spd_factor64` and
+:func:`spd_solve64` pad any n as :func:`spd_inverse64` does.  Matrix
+products are plain ``torch.matmul``; the callers pin full-f32 matmuls
+(TF32 off).
 """
 
 from __future__ import annotations
@@ -30,11 +37,12 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 TILE = 64                      # the kernel's tile size
 
 # launches of each CUDA kernel, counted where its wrapper launches it
-LAUNCHES = {"chol_inv_tile": 0, "chol_tile": 0}
+LAUNCHES = {"chol_inv_tile": 0, "chol_tile": 0, "chol_solve": 0}
 
 
 def _chol_tile_loop(A):
@@ -127,22 +135,27 @@ def chol_inv_tile_ref(A):
     return L, _tri_inv_tile(L)
 
 
-_N_TENSORS = {"chol_inv_tile": 3, "chol_tile": 2}   # input + outputs
+_P, _S, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# each entry point's arguments: the tile kernels take per tensor a pointer,
+# a row stride and a tile stride, then the tile count and the stream;
+# chol_solve takes L (pointer, row and scenario strides), Dinv (pointer,
+# row, block and scenario strides), b and x (pointer, scenario stride),
+# then the block count, the batch and the stream
+_ARGTYPES = {"chol_inv_tile": [_P, _S, _S] * 3 + [_I, _P],
+             "chol_tile": [_P, _S, _S] * 2 + [_I, _P],
+             "chol_solve": [_P, _S, _S, _P, _S, _S, _S, _P, _S, _P, _S,
+                            _I, _I, _P]}
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(name: str, dtype: torch.dtype):
     """The C entry point ``<name>_f32`` / ``<name>_f64`` of
-    ``csrc/<name>.cu``, built on first use and bound once: per tensor a
-    pointer, a row stride and a tile stride, then the tile count and the
-    stream."""
+    ``csrc/<name>.cu``, built on first use and bound once."""
     from cmpc_tpu_torch.ops.cuda_build import load_library
 
     fn = getattr(load_library(name),
                  f"{name}_f32" if dtype == torch.float32 else f"{name}_f64")
-    per_tensor = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-    fn.argtypes = per_tensor * _N_TENSORS[name] \
-        + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -344,18 +357,141 @@ def spd_inverse_any(M, nb: int = 64):
     an identity tail (blockdiag(M, I) stays SPD and its inverse restricts
     to M^-1); any number of leading batch dims."""
     *lead, n, _ = M.shape
-    Mb = M.reshape(-1, n, n)
+    inv = spd_inverse(_pad_identity(M.reshape(-1, n, n), nb), nb)
+    return inv[:, :n, :n].reshape(*lead, n, n)
+
+
+def _pad_identity(M, nb: int):
+    """(B, n, n) -> blockdiag(M, I) of the next multiple of nb, which stays
+    SPD and whose inverse restricts to M^-1; M itself where n is one."""
+    B, n, _ = M.shape
     npad = (-n) % nb
-    if npad:
-        Mp = M.new_zeros(Mb.shape[0], n + npad, n + npad)
-        Mp[:, :n, :n] = Mb
-        Mp[:, n:, n:] = torch.eye(npad, dtype=M.dtype, device=M.device)
-        Mb = Mp
-    inv = spd_inverse(Mb, nb)[:, :n, :n]
-    return inv.reshape(*lead, n, n)
+    if not npad:
+        return M
+    Mp = M.new_zeros(B, n + npad, n + npad)
+    Mp[:, :n, :n] = M
+    Mp[:, n:, n:] = torch.eye(npad, dtype=M.dtype, device=M.device)
+    return Mp
 
 
 def spd_inverse64(M):
     """SPD inverse with block size 64 — the interior-point Newton inverse.
     Batch-first code needs no counterpart of the JAX custom_vmap rule."""
     return spd_inverse_any(M, nb=TILE)
+
+
+def _mv(A, v):
+    return (A @ v[..., None])[..., 0]
+
+
+def _mtv(A, v):
+    return (A.transpose(-1, -2) @ v[..., None])[..., 0]
+
+
+def chol_solve_ref(L, Dinv, b):
+    """Plain torch version of the substitution kernel: x = (L L')^-1 b for
+    L (B, n, n) and Dinv (B, K, nb, nb) from :func:`blocked_cholesky` and
+    b (B, n), by block forward substitution (y_i = Dinv_i (b_i - L_i,<i
+    y_<i)) and back substitution (x_i = Dinv_i' (y_i - L_>i,i' x_>i)).  L's
+    diagonal blocks are not read: Dinv stands for them."""
+    n, K = L.shape[-1], Dinv.shape[1]
+    nb = n // K
+    y = []
+    for i in range(K):
+        r = b[:, i * nb:(i + 1) * nb]
+        if i:
+            r = r - _mv(L[:, i * nb:(i + 1) * nb, :i * nb], torch.cat(y, 1))
+        y.append(_mv(Dinv[:, i], r))
+    x = [None] * K
+    for i in reversed(range(K)):
+        r = y[i]
+        if i + 1 < K:
+            r = r - _mtv(L[:, (i + 1) * nb:, i * nb:(i + 1) * nb],
+                         torch.cat(x[i + 1:], 1))
+        x[i] = _mtv(Dinv[:, i], r)
+    return torch.cat(x, 1)
+
+
+# the kernel keeps the vector and 17 x 64 partial sums in shared memory,
+# (n + 17 * 64) elements: under 48 KB up to n = 4096 in f64
+MAX_SOLVE_N = 4096
+
+
+def _check_solve(L, Dinv, b):
+    """Raise unless the substitution kernel can take L (B, n, n), Dinv
+    (B, n / 64, 64, 64) and b (B, n): f32 or f64 alike, one device,
+    contiguous rows, L's and Dinv's rows 16-byte aligned and each of their
+    strides a whole number of 16 bytes.  Returns the kernel's arguments for
+    L, Dinv and b."""
+    if (L.dim() != 3 or L.shape[1] != L.shape[2] or L.shape[1] % TILE
+            or not 0 < L.shape[1] <= MAX_SOLVE_N):
+        raise ValueError(f"chol_solve kernel takes L of (B, n, n), n a "
+                         f"multiple of {TILE} up to {MAX_SOLVE_N}, got "
+                         f"{tuple(L.shape)}")
+    B, n = L.shape[0], L.shape[1]
+    if (tuple(Dinv.shape) != (B, n // TILE, TILE, TILE)
+            or tuple(b.shape) != (B, n)):
+        raise ValueError(f"chol_solve: Dinv {tuple(Dinv.shape)} and b "
+                         f"{tuple(b.shape)} do not match L {tuple(L.shape)}")
+    vec = _VEC.get(L.dtype)
+    if vec is None:
+        raise TypeError(f"chol_solve kernel takes f32 or f64, got {L.dtype}")
+    if Dinv.dtype != L.dtype or b.dtype != L.dtype:
+        raise TypeError(f"chol_solve: types {L.dtype}, {Dinv.dtype}, "
+                        f"{b.dtype} do not match")
+    if not L.device == Dinv.device == b.device:
+        raise ValueError(f"chol_solve: devices {L.device}, {Dinv.device}, "
+                         f"{b.device} do not match")
+    sL, sD = L.stride(), Dinv.stride()
+    if sL[2] != 1 or sD[3] != 1 or b.stride(1) != 1:
+        raise ValueError(f"chol_solve kernel takes contiguous rows, got "
+                         f"strides {sL}, {sD}, {b.stride()}")
+    if (any(s % vec for s in (*sL[:2], *sD[:3]))
+            or L.data_ptr() % 16 or Dinv.data_ptr() % 16):
+        raise ValueError(f"chol_solve kernel takes 16-byte aligned rows, "
+                         f"got strides {sL}, {sD}")
+    return (L.data_ptr(), sL[1], sL[0], Dinv.data_ptr(), sD[2], sD[1],
+            sD[0], b.data_ptr(), b.stride(0))
+
+
+def chol_solve(L, Dinv, b):
+    """x = (L L')^-1 b for (B, n) right-hand sides b, from the blocked
+    factor (L, Dinv) of :func:`blocked_cholesky` at block size 64, read
+    where it lies (any row and scenario strides).  CPU tensors take
+    :func:`chol_solve_ref`; CUDA tensors launch the kernel on the current
+    stream or raise."""
+    if b.device.type == "cpu":
+        return chol_solve_ref(L, Dinv, b)
+    if b.device.type != "cuda":
+        raise RuntimeError(f"chol_solve: no kernel for device {b.device}")
+    args = _check_solve(L, Dinv, b)
+    B, n = b.shape
+    x = b.new_empty(B, n)
+    if B == 0:
+        return x
+    fn = _kernel_fn("chol_solve", b.dtype)
+    with torch.cuda.device(b.device):
+        err = fn(*args, x.data_ptr(), x.stride(0), n // TILE, B,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"chol_solve kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["chol_solve"] += 1
+    return x
+
+
+def spd_factor64(M):
+    """The blocked factor (L, Dinv) of (B, n, n) SPD matrices at block size
+    64, for any n: M padded with an identity tail as :func:`spd_inverse64`
+    pads it."""
+    return blocked_cholesky(_pad_identity(M, TILE), TILE)
+
+
+def spd_solve64(L, Dinv, b):
+    """M^-1 b for (B, n) right-hand sides from ``spd_factor64(M)``: b padded
+    with zeros to L's size (the identity tail's part of x is 0), solved by
+    :func:`chol_solve`, cut back to n."""
+    n, npad = b.shape[-1], L.shape[-1] - b.shape[-1]
+    if npad:
+        return chol_solve(L, Dinv, F.pad(b, (0, npad)))[:, :n]
+    return chol_solve(L, Dinv, b)

@@ -5,11 +5,22 @@ Solves, per scenario b,  min 1/2 v'H_b v + g_b'v  s.t.  C_b v <= d_b
 (plus the optional per-stage blocks C_blk/d_blk) with a fixed iteration
 count, so every scenario runs in lockstep.  Every reduction — the cost
 scale, mu, the fraction-to-boundary step and the non-finite guard — is
-taken per scenario.  By default each iteration inverts the Newton matrix
-explicitly (through :func:`batched_chol.spd_inverse64` for n >= 128, the
-library's Cholesky below that or with ``inv_method="xla"``) and applies the
-inverse as a matrix; ``explicit_inv=False`` factors it once per iteration
-and applies the factor by substitution to each right-hand side.
+taken per scenario.  By default (``explicit_inv=True``) each iteration
+inverts the Newton matrix explicitly, as the JAX package does (through
+:func:`batched_chol.spd_inverse64` for n >= 128, the library's Cholesky
+below that or with ``inv_method="xla"``), and applies the inverse as a
+matrix; ``explicit_inv=False`` factors it once per iteration and applies
+the factor by substitution to each right-hand side.
+
+On a CUDA device the blocked route (``explicit_inv=True``,
+``inv_method="blocked"``, n >= 128) forms no inverse: the iteration takes
+the blocked factor (:func:`batched_chol.spd_factor64`, the tile kernel) and
+applies it to each right-hand side by block substitution, in the kernel
+``csrc/chol_solve.cu`` (:func:`batched_chol.spd_solve64`).  On the TPU the
+inverse's blocked products beat a substitution; on the card the inverse
+costs 3.2x the factor's operations, and its product reads as many bytes as
+the substitution.  The same M^-1 is applied to the same right-hand sides,
+rounded as a substitution rounds.
 """
 
 from __future__ import annotations
@@ -21,11 +32,16 @@ import torch
 import torch.nn.functional as F
 
 from cmpc_tpu_torch.consts import const
-from cmpc_tpu_torch.ops.batched_chol import spd_inverse64
+from cmpc_tpu_torch.ops.batched_chol import (spd_factor64, spd_inverse64,
+                                             spd_solve64)
 from cmpc_tpu_torch.runtime import spans
 
 
 class PDIPSettings(NamedTuple):
+    """The JAX package's settings, fields and defaults.  Under
+    ``explicit_inv=True`` with ``inv_method="blocked"`` and n >= 128 a CUDA
+    device applies the blocked factor by substitution instead of forming
+    M^-1 (module docstring); everything else runs as the fields say."""
     iters: int = 15
     tau: float = 0.95          # fraction-to-boundary
     reg: float = 1e-8          # Newton-matrix diagonal regularization
@@ -55,6 +71,20 @@ def _mv(A, x):
 
 def _mtv(A, x):
     return (A.transpose(-1, -2) @ x[..., None])[..., 0]
+
+
+def _inverse_solver(M):
+    """The JAX package's Newton step: M^-1 formed by the blocked inverse
+    and applied as a matrix."""
+    Minv = spd_inverse64(M)
+    return lambda rhs: _mv(Minv, rhs)
+
+
+def _substitution_solver(M):
+    """The card's Newton step: M's blocked factor, applied to each
+    right-hand side by block substitution; M^-1 is never formed."""
+    L, Dinv = spd_factor64(M)
+    return lambda rhs: spd_solve64(L, Dinv, rhs)
 
 
 def _cho_factor(M):
@@ -143,15 +173,17 @@ def pdip_solve(H, g, C, d, settings: PDIPSettings = PDIPSettings(),
 
         dscale = torch.clamp(lam / w, 1e-12, d_clip)
         M = newton_matrix(dscale, reg)
-        if settings.explicit_inv:
-            # the blocked inverse (and its tile kernel) at the MPC's sizes;
+        if settings.explicit_inv and settings.inv_method == "blocked" \
+                and n >= 128:
+            # the blocked factor (and its tile kernel) at the MPC's sizes:
+            # on the card applied by substitution, elsewhere inverted
+            solve = (_substitution_solver if dev.type == "cuda"
+                     else _inverse_solver)(M)
+        elif settings.explicit_inv:
             # small QPs, off the production path, take the library's
             # Cholesky as the JAX package takes its cho path there
-            if settings.inv_method == "blocked" and n >= 128:
-                Minv = spd_inverse64(M)
-            else:
-                Minv = torch.cholesky_solve(eye_n.expand(B, n, n),
-                                            _cho_factor(M))
+            Minv = torch.cholesky_solve(eye_n.expand(B, n, n),
+                                        _cho_factor(M))
 
             def solve(rhs):
                 return _mv(Minv, rhs)

@@ -271,7 +271,7 @@ def test_wrapper_dispatch_cpu_and_refusal():
 def test_chol_tile_wrapper_dispatch_cpu_and_refusal():
     """The factor-only wrapper: CPU tensors take chol_tile_ref and count no
     launch; a device with no kernel raises instead of falling back."""
-    assert set(tbc.LAUNCHES) == {"chol_inv_tile", "chol_tile"}
+    assert set(tbc.LAUNCHES) == {"chol_inv_tile", "chol_tile", "chol_solve"}
     M = torch.tensor(_spd(np.random.default_rng(8), 2, 64, dtype=np.float32))
     n0 = dict(tbc.LAUNCHES)
     assert torch.equal(tbc.chol_tile(M), tbc.chol_tile_ref(M))
@@ -408,3 +408,127 @@ def test_kernel_argument_checks():
     with pytest.raises(ValueError, match="overlap"):
         tbc._check_tiles("chol_inv_tile",
                          torch.zeros(64, 64).expand(4, 64, 64), like=blk)
+
+
+# ------------------------------------------------- the block substitution
+
+def _factored(rng, B, n, dtype=np.float64):
+    """(M, L, Dinv, b): SPD M (B, n, n) and its blocked factor at block size
+    64, L and Dinv written in place by blocked_cholesky."""
+    M = torch.tensor(_spd(rng, B, n, dtype=dtype))
+    L, Dinv = tbc.blocked_cholesky(M, 64)
+    b = torch.tensor(rng.normal(size=(B, n)).astype(dtype))
+    return M, L, Dinv, b
+
+
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("n", [128, 192, 320])
+def test_chol_solve_ref_matches_dense_solves(n, B):
+    """The plain version of the substitution kernel against
+    torch.linalg.solve(M, b) and spd_inverse64(M) @ b, f64.  M = A A' / 100
+    + 10 I has its eigenvalues in [10, 10 + 0.04 n], a condition number
+    under 2.3 at these sizes, so any backward-stable solve of it agrees with
+    another to a few ulps of |x| (~0.3, an ulp 5.6e-17): 1e-13 absolute
+    leaves room for rounding and none for a wrong block."""
+    M, L, Dinv, b = _factored(np.random.default_rng(40 + n + B), B, n)
+    x = tbc.chol_solve_ref(L, Dinv, b)
+    assert x.shape == (B, n) and x.dtype == torch.float64
+    torch.testing.assert_close(x, torch.linalg.solve(M, b), rtol=0,
+                               atol=1e-13)
+    torch.testing.assert_close(
+        x, (tbc.spd_inverse64(M) @ b[..., None])[..., 0], rtol=0, atol=1e-13)
+    assert torch.equal(tbc.chol_solve(L, Dinv, b), x)     # the CPU route
+
+
+@pytest.mark.parametrize("n", [331, 320])
+def test_spd_factor_and_solve64_pad_as_the_inverse_does(n):
+    """spd_factor64 / spd_solve64 at the production n and at 331 (padded to
+    384 with an identity tail, b with zeros): M^-1 b as spd_inverse64's
+    product gives it, f64, 1e-13 (the bound above)."""
+    rng = np.random.default_rng(44)
+    M = torch.tensor(_spd(rng, 3, n))
+    b = torch.tensor(rng.normal(size=(3, n)))
+    L, Dinv = tbc.spd_factor64(M)
+    assert L.shape == (3, 384 if n == 331 else 320, L.shape[1])
+    x = tbc.spd_solve64(L, Dinv, b)
+    assert x.shape == (3, n)
+    torch.testing.assert_close(
+        x, (tbc.spd_inverse64(M) @ b[..., None])[..., 0], rtol=0, atol=1e-13)
+
+
+@pytest.mark.parametrize("where", ["dinv", "below_diagonal", "last_row"])
+def test_chol_solve_nan_tile_poisons_its_scenario_only(where):
+    """A NaN in one tile the sweeps read (a tile inverse, a block of L below
+    the diagonal, a block of L's last block row) makes that scenario's x
+    wholly non-finite, as the explicit inverse's product does, so the
+    interior point's guard freezes the same scenarios; the other scenarios'
+    x are unchanged bit for bit."""
+    M, L, Dinv, b = _factored(np.random.default_rng(45), 4, 320)
+    clean = tbc.chol_solve_ref(L, Dinv, b)
+    if where == "dinv":
+        Dinv[1, 2, 10, 5] = np.nan
+    elif where == "below_diagonal":
+        L[1, 140, 70] = np.nan
+    else:
+        L[1, 300, 3] = np.nan
+    x = tbc.chol_solve(L, Dinv, b)
+    assert not torch.isfinite(x[1]).any()
+    assert torch.equal(x[[0, 2, 3]], clean[[0, 2, 3]])
+    Minv = L.new_zeros(4, 320, 320)
+    Minv[1] = np.nan                   # what the explicit route gives there
+    assert not torch.isfinite((Minv @ b[..., None])[1]).any()
+
+
+def test_chol_solve_dispatch_cpu_and_refusal():
+    """CPU tensors take the plain version and count no launch; a device
+    with no kernel raises instead of falling back."""
+    M, L, Dinv, b = _factored(np.random.default_rng(46), 2, 128, np.float32)
+    n0 = dict(tbc.LAUNCHES)
+    assert torch.equal(tbc.chol_solve(L, Dinv, b),
+                       tbc.chol_solve_ref(L, Dinv, b))
+    assert tbc.LAUNCHES == n0
+    meta = [t.to("meta") for t in (L, Dinv, b)]
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tbc.chol_solve(*meta)
+
+
+def test_chol_solve_argument_checks():
+    """What the substitution kernel's launcher refuses before it launches
+    (shapes, types and strides only, so the checks run on CPU tensors):
+    L that is not (B, n, n) with n a multiple of 64 up to 4096, Dinv or b
+    that do not match it, mixed or unsupported types, rows that are not
+    contiguous, strides or pointers that are not 16-byte aligned.  Views
+    as the route and the card tests hand them are taken."""
+    L = torch.zeros(3, 320, 320)
+    D = torch.zeros(3, 5, 64, 64)
+    b = torch.zeros(3, 320)
+    tbc._check_solve(L, D, b)
+    tbc._check_solve(torch.zeros(3, 320, 328)[:, :, :320],
+                     torch.zeros(3, 6, 64, 68)[:, :5, :, :64],
+                     torch.zeros(3, 330)[:, :320])
+    with pytest.raises(ValueError, match="multiple"):
+        tbc._check_solve(L[:, :300, :300], D, b[:, :300])
+    with pytest.raises(ValueError, match="multiple"):
+        tbc._check_solve(torch.zeros(1, 4160, 4160),
+                         torch.zeros(1, 65, 64, 64), torch.zeros(1, 4160))
+    with pytest.raises(ValueError, match="match"):
+        tbc._check_solve(L, D[:, :4], b)
+    with pytest.raises(ValueError, match="match"):
+        tbc._check_solve(L, D, b[:2])
+    with pytest.raises(TypeError):
+        tbc._check_solve(L.half(), D.half(), b.half())
+    with pytest.raises(TypeError, match="match"):
+        tbc._check_solve(L, D.double(), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbc._check_solve(L.transpose(1, 2), D, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbc._check_solve(L, D.transpose(2, 3), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbc._check_solve(L, D, torch.zeros(3, 640)[:, ::2])
+    with pytest.raises(ValueError, match="aligned"):     # rows of 322
+        tbc._check_solve(torch.zeros(3, 320, 322)[:, :, :320], D, b)
+    with pytest.raises(ValueError, match="aligned"):     # starts at col 1
+        tbc._check_solve(torch.zeros(3, 320, 324)[:, :, 1:321], D, b)
+    with pytest.raises(ValueError, match="aligned"):     # f64: 16 B = 2
+        tbc._check_solve(L.double(), torch.zeros(
+            3, 5, 64, 65, dtype=torch.float64)[..., :64], b.double())

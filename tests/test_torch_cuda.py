@@ -276,6 +276,91 @@ def test_cuda_spd_inverse64_matches_numpy(cuda):
                                atol=1e-12)
 
 
+def _strided_factor(M):
+    """The blocked factor of M (B, n, n) on the card, copied into views of
+    larger buffers (L's rows 8 elements longer, Dinv's rows 4 longer and a
+    sixth block per scenario) whose every element the substitution must not
+    read is NaN: the padding, L's diagonal blocks and everything above
+    them."""
+    B, n, _ = M.shape
+    L, Dinv = tbc.blocked_cholesky(M, 64)
+    K = n // 64
+    Lv = torch.full((B, n, n + 8), float("nan"), dtype=M.dtype,
+                    device=M.device)[:, :, :n]
+    keep = torch.ones(K, K, dtype=torch.bool, device=M.device).tril(-1)
+    keep = keep.repeat_interleave(64, 0).repeat_interleave(64, 1)
+    Lv.copy_(torch.where(keep, L, float("nan")))
+    Dv = torch.full((B, K + 1, 64, 68), float("nan"), dtype=M.dtype,
+                    device=M.device)[:, :K, :, :64]
+    Dv.copy_(Dinv)
+    return L, Dinv, Lv, Dv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 7, 2048])
+def test_cuda_chol_solve_matches_plain(B, dtype, cuda):
+    """The substitution kernel against its plain version on the card, on
+    the factor blocked_cholesky wrote and on strided views of it whose
+    unread elements are NaN (same x bit for bit: the kernel reads nothing
+    else), one launch per call.  f32 within 2e-6 of |x|'s largest (measured
+    5e-7 at (2048, 320): sums taken in another order), f64 within 1e-14
+    (measured 8e-16); both within the same of a f64 dense solve as the
+    plain version is."""
+    n = 320
+    g = torch.Generator(device=cuda).manual_seed(B)
+    A = torch.randn(B, n, n, generator=g, device=cuda,
+                    dtype=torch.float64) / n ** 0.5
+    M64 = A @ A.transpose(1, 2) + 0.1 * torch.eye(n, dtype=torch.float64,
+                                                  device=cuda)
+    b64 = torch.randn(B, n, generator=g, device=cuda, dtype=torch.float64)
+    M, b = M64.to(dtype), b64.to(dtype)
+    L, Dinv, Lv, Dv = _strided_factor(M)
+    n0 = tbc.LAUNCHES["chol_solve"]
+    x = tbc.chol_solve(L, Dinv, b)
+    assert tbc.LAUNCHES["chol_solve"] == n0 + 1
+    bv = torch.full((B, n + 10), float("nan"), dtype=dtype,
+                    device=cuda)[:, :n]
+    bv.copy_(b)
+    assert torch.equal(tbc.chol_solve(Lv, Dv, bv), x)
+    xr = tbc.chol_solve_ref(L, Dinv, b)
+    tol = 2e-6 if dtype == torch.float32 else 1e-14
+    scale = float(xr.abs().max())
+    torch.testing.assert_close(x, xr, rtol=0, atol=tol * scale)
+    xd = torch.linalg.solve(M64, b64)
+    gap_plain = float((xr.double() - xd).abs().max())
+    assert float((x.double() - xd).abs().max()) <= gap_plain + tol * scale
+
+
+def test_cuda_chol_solve_nan_tile_poisons_its_scenario_only(cuda):
+    """A NaN in a tile inverse of one scenario and in a block of L below the
+    diagonal of another: those two x are wholly non-finite, the others the
+    clean call's bit for bit (each scenario is its own CTA)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    A = torch.randn(5, 320, 320, generator=g, device=cuda) / 320 ** 0.5
+    M = A @ A.transpose(1, 2) + 0.1 * torch.eye(320, device=cuda)
+    b = torch.randn(5, 320, generator=g, device=cuda)
+    L, Dinv = tbc.blocked_cholesky(M, 64)
+    clean = tbc.chol_solve(L, Dinv, b)
+    Dinv[1, 2, 10, 5] = float("nan")
+    L[3, 300, 70] = float("nan")
+    x = tbc.chol_solve(L, Dinv, b)
+    assert not torch.isfinite(x[[1, 3]]).any()
+    assert torch.equal(x[[0, 2, 4]], clean[[0, 2, 4]])
+
+
+def test_cuda_chol_solve_rejects_bad_input(cuda):
+    L = torch.zeros(2, 320, 320, device=cuda)
+    D = torch.zeros(2, 5, 64, 64, device=cuda)
+    b = torch.zeros(2, 320, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        tbc.chol_solve(torch.zeros(2, 320, 322, device=cuda)[:, :, :320], D,
+                       b)
+    with pytest.raises(TypeError, match="match"):
+        tbc.chol_solve(L, D.double(), b)
+    with pytest.raises(ValueError, match="match"):
+        tbc.chol_solve(L.cpu(), D, b)
+
+
 def _recorded_params(device, ticks):
     """MPCParams at recorded walk ticks, built by the port's own planner
     (as chip_smoke.py replays them), f64."""
@@ -300,18 +385,22 @@ def _recorded_params(device, ticks):
 
 
 def test_cuda_solve_matches_cpu(cuda):
-    """One batched solve (3 SQP x 8 IPM iterations) through the kernel: 120
-    launches, and the same z and residuals as the CPU run of the same code
-    (f64, 1e-8 — the tolerance the CPU solve is held to against JAX)."""
+    """One batched solve (3 SQP x 8 IPM iterations) through the kernels:
+    120 tile launches and 96 substitutions (2 right-hand sides x (1 +
+    refine) per IPM iteration) on the card, none on the CPU, which forms
+    the explicit inverse; the same z and residuals as the CPU run (f64,
+    1e-8 — the tolerance the CPU solve is held to against JAX)."""
     ticks = [250, 262, 300, 420]
     out = {}
     for dev in (torch.device("cpu"), cuda):
         p = _recorded_params(dev, ticks)
         st = sqp.init_solver_state(CFG, p.x0, mass=p.mass)
-        n0 = tbc.LAUNCHES["chol_inv_tile"]
+        n0 = dict(tbc.LAUNCHES)
         out[dev.type] = sqp.solve_mpc(st, p, CFG)
-        launches = tbc.LAUNCHES["chol_inv_tile"] - n0
+        launches = tbc.LAUNCHES["chol_inv_tile"] - n0["chol_inv_tile"]
+        solves = tbc.LAUNCHES["chol_solve"] - n0["chol_solve"]
         assert launches == (120 if dev.type == "cuda" else 0)
+        assert solves == (96 if dev.type == "cuda" else 0)
     (sc_, ic), (sg, ig) = out["cpu"], out["cuda"]
     np.testing.assert_allclose(sg.z.cpu().numpy(), sc_.z.numpy(), rtol=0,
                                atol=1e-8)
@@ -340,15 +429,17 @@ def test_cuda_rollout_matches_cpu(cuda):
 def test_cuda_sweep_256_matches_cpu(cuda):
     """Five ticks of the 256-scenario make_batch sweep (seed 7) on the card
     and on the CPU, f64: the per-scenario statistics at 1e-8, through 120
-    launches of 256 tiles per tick."""
+    launches of 256 tiles and 96 substitutions per tick."""
     out = {}
     for dev in (torch.device("cpu"), cuda):
         sc = pmesh.make_batch(CFG, 256, seed=7, device=dev,
                               dtype=torch.float64)
-        n0 = tbc.LAUNCHES["chol_inv_tile"]
+        n0 = dict(tbc.LAUNCHES)
         out[dev.type] = pmesh.sweep_per_scenario(sc, CFG, 5)
-        launches = tbc.LAUNCHES["chol_inv_tile"] - n0
+        launches = tbc.LAUNCHES["chol_inv_tile"] - n0["chol_inv_tile"]
+        solves = tbc.LAUNCHES["chol_solve"] - n0["chol_solve"]
         assert launches == (5 * 120 if dev.type == "cuda" else 0)
+        assert solves == (5 * 96 if dev.type == "cuda" else 0)
     for name in out["cpu"]._fields:
         np.testing.assert_allclose(getattr(out["cuda"], name).cpu().numpy(),
                                    getattr(out["cpu"], name).numpy(),
