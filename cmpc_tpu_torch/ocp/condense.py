@@ -61,18 +61,13 @@ def _soft_row_index(N: int) -> np.ndarray:
     ], axis=1)
 
 
-def soft_row_parts(lam_soft, params: problem.MPCParams, cfg: WalkConfig,
-                   psd: bool = True):
-    """(idx (N,11,3) numpy, Q11 (B,N,11,11), lam_mom (B,)): the
-    lam-weighted, convexified Hessian of the Lyapunov/momentum rows in
-    compact per-(row, axis) form (see the JAX soft_row_hessian docstring;
-    this is the JAX package's _soft_row_impl, batched)."""
-    N = cfg.N
-    k1, m = params.k1, params.mass
-    lam = lam_soft[:, :N]
-    lam_mom = lam_soft[:, N]
-    B = lam_soft.shape[0]
-
+def soft_row_q(k1, m, psd: bool = True):
+    """(B, 4, 4): the core of the Lyapunov/momentum rows' Hessian, set by
+    the gain k1 and the mass m (B,) alone, projected onto the PSD cone by
+    its eigendecomposition (psd=True).  On the card ``torch.linalg.eigh``
+    makes the host wait for the device (its error check), so a solve
+    computes this once and hands it to each :func:`build`, and a closed
+    loop once for all its solves."""
     z = torch.zeros_like(k1)
     one = torch.ones_like(k1)
     Q = torch.stack([
@@ -80,11 +75,26 @@ def soft_row_parts(lam_soft, params: problem.MPCParams, cfg: WalkConfig,
         torch.stack([k1 ** 2 + 1.0, 2.0 * k1, one, 1.0 / m], -1),
         torch.stack([k1, one, z, z], -1),
         torch.stack([k1 / m, 1.0 / m, z, z], -1)], -2)        # (B,4,4)
-    if psd:
-        ew, EV = torch.linalg.eigh(Q)
-        Qp = (EV * ew.clamp_min(0.0)[:, None, :]) @ EV.transpose(-1, -2)
-    else:
-        Qp = Q
+    if not psd:
+        return Q
+    ew, EV = torch.linalg.eigh(Q)
+    return (EV * ew.clamp_min(0.0)[:, None, :]) @ EV.transpose(-1, -2)
+
+
+def soft_row_parts(lam_soft, params: problem.MPCParams, cfg: WalkConfig,
+                   psd: bool = True, Qp=None):
+    """(idx (N,11,3) numpy, Q11 (B,N,11,11), lam_mom (B,)): the
+    lam-weighted, convexified Hessian of the Lyapunov/momentum rows in
+    compact per-(row, axis) form (see the JAX soft_row_hessian docstring;
+    this is the JAX package's _soft_row_impl, batched).  Qp: the
+    :func:`soft_row_q` of `params`, where the caller has it."""
+    N = cfg.N
+    m = params.mass
+    lam = lam_soft[:, :N]
+    lam_mom = lam_soft[:, N]
+    B = lam_soft.shape[0]
+    if Qp is None:
+        Qp = soft_row_q(params.k1, m, psd)
 
     gam8 = torch.cat([params.gamma_l[:, :N, None].expand(B, N, 4),
                       params.gamma_r[:, :N, None].expand(B, N, 4)],
@@ -155,14 +165,16 @@ def _block_rows(mu: float):
 @spans.spanned("condense.build")
 def build(z, params: problem.MPCParams, cfg: WalkConfig, prox, w_prox_u,
           lam_soft=None, soft: bool = True,
-          structured: bool = False) -> CondensedQP:
+          structured: bool = False, soft_q=None) -> CondensedQP:
     """Condense the QP at base point z (B, n_z).
 
     prox: (B,) or float, proximal weight on dU with per-coordinate weights
     w_prox_u (nU,).  lam_soft (B, ns): Lyapunov/momentum multiplier
     estimates whose convexified constraint Hessian enters H.  structured:
     the friction/unilaterality rows as per-stage blocks (C_blk, d_blk) and
-    no dense Jacobian; otherwise every row in C and C_blk = d_blk = None."""
+    no dense Jacobian; otherwise every row in C and C_blk = d_blk = None.
+    soft_q: :func:`soft_row_q` of `params` (structured only), computed
+    here where not given."""
     N = cfg.N
     nX = 20 * (N + 1)
     nU = 32 * N
@@ -202,7 +214,8 @@ def build(z, params: problem.MPCParams, cfg: WalkConfig, prox, w_prox_u,
         gz_U = (Puu_c @ z[:, nX:, None])[..., 0] + q[:, nX:]
         Hc = Et @ (dX_diag[:, :, None] * E) + Puu_c
         if lam_soft is not None:
-            idx, Q11, lam_mom = soft_row_parts(lam_soft, params, cfg)
+            idx, Q11, lam_mom = soft_row_parts(lam_soft, params, cfg,
+                                               Qp=soft_q)
             SE = torch.cat([E, torch.eye(nU, dtype=dt, device=dev)
                             .expand(B, nU, nU)], dim=1)
             R = SE[:, const(("soft_idx", N), lambda: idx.reshape(-1), dev)] \

@@ -128,18 +128,21 @@ def prep_warmstart(state: SolverState, params: problem.MPCParams,
 
 
 def solve_mpc(state: SolverState, params: problem.MPCParams,
-              cfg: WalkConfig):
-    """One batched MPC solve; returns (new SolverState, SolveInfo)."""
+              cfg: WalkConfig, soft_q=None):
+    """One batched MPC solve; returns (new SolverState, SolveInfo).
+
+    soft_q: ``condense.soft_row_q(params.k1, params.mass)`` where the
+    caller keeps it across solves (condip only; computed here otherwise)."""
     with spans.span("sqp.solve_mpc"):
         if cfg.mpc_solver == "condip":
-            return _solve_mpc_condip(state, params, cfg)
+            return _solve_mpc_condip(state, params, cfg, soft_q)
         if cfg.mpc_solver == "admm":
             return _solve_mpc_admm(state, params, cfg)
         raise ValueError(f"unknown mpc_solver {cfg.mpc_solver!r}")
 
 
 def _solve_mpc_condip(state: SolverState, params: problem.MPCParams,
-                      cfg: WalkConfig):
+                      cfg: WalkConfig, soft_q=None):
     N = cfg.N
     nU = 32 * N
     B = params.x0.shape[0]
@@ -152,6 +155,10 @@ def _solve_mpc_condip(state: SolverState, params: problem.MPCParams,
     w_prox_u[:, 24:] = 1e-3
     w_prox_u = w_prox_u.reshape(-1)
     settings = PDIPSettings(iters=cfg.pdip_iters, refine=cfg.pdip_refine)
+    if soft_q is None:
+        # once a solve, not once an SQP iteration: its eigh makes the host
+        # wait for the device
+        soft_q = condense.soft_row_q(params.k1, params.mass)
 
     with spans.span("sqp.warm_start"):
         U = prep_warmstart(state, params, cfg)
@@ -181,7 +188,7 @@ def _solve_mpc_condip(state: SolverState, params: problem.MPCParams,
         z = problem.join_z(X, U)
         qp = condense.build(z, params, cfg, prox, w_prox_u,
                             lam_soft=lam_soft, soft=cfg.condip_soft,
-                            structured=True)
+                            structured=True, soft_q=soft_q)
         res = pdip_solve(qp.H, qp.g, qp.C, qp.d, settings,
                          C_blk=qp.C_blk, d_blk=qp.d_blk)
         dU = torch.nan_to_num(res.v[:, :nU], nan=0.0, posinf=0.0,

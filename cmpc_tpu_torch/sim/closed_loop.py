@@ -9,6 +9,14 @@ clamped gathers do; the push window and the payload onset compare the
 tick itself.
 Footstep adaptation writes the MPC's terminal swing-foot position into
 the carried plan at the statically known event ticks.
+
+With ``runtime.spans`` recording, a tick is the span ``closed_loop.tick``
+holding ``closed_loop.refs`` (the feet's references, the packed x0 and
+the MPC's parameters), the solve's own spans, ``closed_loop.adapt`` (at
+the event ticks) and ``closed_loop.plant`` (the disturbance, the payload
+and the plant step); the counters ``closed_loop.pushed`` (rows under a
+push), ``closed_loop.impacts`` (rows with a payload impact) and
+``closed_loop.ticks`` add on the device.  Off, neither adds an operation.
 """
 
 from __future__ import annotations
@@ -19,11 +27,12 @@ import torch
 
 from cmpc_tpu_torch.config import Scenario, WalkConfig
 from cmpc_tpu_torch.models import centroidal as cm
-from cmpc_tpu_torch.ocp import assemble, problem
+from cmpc_tpu_torch.ocp import assemble, condense, problem
 from cmpc_tpu_torch.ops import sqp
 from cmpc_tpu_torch.plan import com_ref as com_ref_mod
 from cmpc_tpu_torch.plan import footsteps, swing, timing as timing_mod
 from cmpc_tpu_torch.plan.timing import at, clamp_index
+from cmpc_tpu_torch.runtime import spans
 from cmpc_tpu_torch.sim.plant import PlantState, plant_step
 
 
@@ -83,6 +92,10 @@ def rollout(scenario: Scenario, cfg: WalkConfig, T_sim: int | None = None,
                               dtype=dt)
     support_is_left_tbl = timing.foot_is_left[timing.step_idx]
     gravity = cm.gravity_vector(cfg.g, like)
+    # the solves' soft-row core depends on the gains and the mass alone:
+    # made once here, so that no tick waits for the device
+    soft_q = condense.soft_row_q(sc.k1, sc.mpc_mass) \
+        if cfg.mpc_solver == "condip" else None
 
     if carry_in is None:
         x0_init = like.new_zeros(B, 20)
@@ -100,16 +113,21 @@ def rollout(scenario: Scenario, cfg: WalkConfig, T_sim: int | None = None,
     N, P = cfg.N, cfg.pad_ticks
 
     def tick(carry: LoopCarry, t: int):
-        plan = footsteps.FootstepPlan(pos=carry.plan_pos, yaw=plan0.yaw)
-        feet = swing.feet_ref_at(t, plan, cfg, timing, sc.foot_y)
-        x0 = assemble.pack_x0(carry.plant.com_pos, carry.plant.com_vel,
-                              carry.plant.hw, carry.theta_hat,
-                              feet.pose_l, feet.pose_r,
-                              t, plan, refs, timing, cfg)
-        params = assemble.gather_params(t, x0, refs, timing, cfg,
-                                        sc.k1, sc.k2, sc.mpc_mass)
+        with spans.span("closed_loop.tick"):
+            return _tick(carry, t)
 
-        solver, info = sqp.solve_mpc(carry.solver, params, cfg)
+    def _tick(carry: LoopCarry, t: int):
+        with spans.span("closed_loop.refs"):
+            plan = footsteps.FootstepPlan(pos=carry.plan_pos, yaw=plan0.yaw)
+            feet = swing.feet_ref_at(t, plan, cfg, timing, sc.foot_y)
+            x0 = assemble.pack_x0(carry.plant.com_pos, carry.plant.com_vel,
+                                  carry.plant.hw, carry.theta_hat,
+                                  feet.pose_l, feet.pose_r,
+                                  t, plan, refs, timing, cfg)
+            params = assemble.gather_params(t, x0, refs, timing, cfg,
+                                            sc.k1, sc.k2, sc.mpc_mass)
+
+        solver, info = sqp.solve_mpc(carry.solver, params, cfg, soft_q)
         X, U = problem.split_z(solver.z, cfg)
         x1, u0 = X[:, 1], U[:, 0]
 
@@ -124,35 +142,43 @@ def rollout(scenario: Scenario, cfg: WalkConfig, T_sim: int | None = None,
         do_adapt = bool(at(timing.update_event, t)) and cfg.update_contact
         plan_pos = carry.plan_pos
         if do_adapt:
-            new_contact = X[:, N, cm.POS_R] if at(support_is_left_tbl, t) \
-                else X[:, N, cm.POS_L]
-            plan_pos = plan_pos.clone()
-            plan_pos[:, int(at(timing.adapt_target, t))] = new_contact
+            with spans.span("closed_loop.adapt"):
+                new_contact = X[:, N, cm.POS_R] \
+                    if at(support_is_left_tbl, t) else X[:, N, cm.POS_L]
+                plan_pos = plan_pos.clone()
+                plan_pos[:, int(at(timing.adapt_target, t))] = new_contact
 
-        # disturbance window (simulation.py:195-198: t > start, t < end)
-        pushing = ((t > sc.push_start) & (t < sc.push_end))[:, None]
-        ext_f = torch.where(pushing, sc.push_force, 0.0)
-        ext_tau = torch.where(pushing, sc.push_torque, 0.0)
+        with spans.span("closed_loop.plant"):
+            # disturbance window (simulation.py:195-198: t > start,
+            # t < end)
+            pushing = ((t > sc.push_start) & (t < sc.push_end))[:, None]
+            ext_f = torch.where(pushing, sc.push_force, 0.0)
+            ext_tau = torch.where(pushing, sc.push_torque, 0.0)
 
-        # payload drop: mass step at the onset tick plus a one-tick impact
-        # impulse m_p * v_impact
-        has_payload = t >= sc.payload_onset
-        eff_mass = sc.plant_mass + torch.where(has_payload, sc.payload_mass,
-                                               0.0)
-        impact = (t == sc.payload_onset) & (sc.payload_mass > 0)
-        f_impact = (sc.payload_mass * sc.payload_impact_vel
-                    / cfg.world_time_step)
-        ext_f = torch.cat([ext_f[:, :2], (ext_f[:, 2] + torch.where(
-            impact, -f_impact, 0.0))[:, None]], dim=1)
+            # payload drop: mass step at the onset tick plus a one-tick
+            # impact impulse m_p * v_impact
+            has_payload = t >= sc.payload_onset
+            eff_mass = sc.plant_mass + torch.where(has_payload,
+                                                   sc.payload_mass, 0.0)
+            impact = (t == sc.payload_onset) & (sc.payload_mass > 0)
+            f_impact = (sc.payload_mass * sc.payload_impact_vel
+                        / cfg.world_time_step)
+            ext_f = torch.cat([ext_f[:, :2], (ext_f[:, 2] + torch.where(
+                impact, -f_impact, 0.0))[:, None]], dim=1)
 
-        plant = plant_step(carry.plant, x1[:, cm.P_COM], x1[:, cm.V_COM],
-                           com_acc_des, u0, float(at(timing.gamma_l, t)),
-                           float(at(timing.gamma_r, t)),
-                           feet.pose_l, feet.pose_r, sc.mpc_mass,
-                           eff_mass, ext_f, ext_tau, cfg.g,
-                           polygon, cfg.world_time_step,
-                           hw_compliance=cfg.plant_hw_compliance,
-                           hw_shed=cfg.plant_hw_shed)
+            plant = plant_step(carry.plant, x1[:, cm.P_COM], x1[:, cm.V_COM],
+                               com_acc_des, u0, float(at(timing.gamma_l, t)),
+                               float(at(timing.gamma_r, t)),
+                               feet.pose_l, feet.pose_r, sc.mpc_mass,
+                               eff_mass, ext_f, ext_tau, cfg.g,
+                               polygon, cfg.world_time_step,
+                               hw_compliance=cfg.plant_hw_compliance,
+                               hw_shed=cfg.plant_hw_shed)
+        if spans.enabled():
+            spans.add("closed_loop.pushed", pushing.sum())
+            spans.add("closed_loop.impacts", impact.sum())
+            spans.add("closed_loop.ticks", torch.ones((), dtype=torch.int64,
+                                                      device=dev))
 
         trace = Trace(
             com_pos=carry.plant.com_pos, com_vel=carry.plant.com_vel,
