@@ -546,9 +546,11 @@ def production_solve(dev, bc, card):
     """Phase 4: bench.py's replay of 256 recorded production-walk ticks."""
     import torch
     from cmpc_tpu_torch.ops import sqp
+    from cmpc_tpu_torch.runtime import graphs
 
     B = B_SOLVE
     cfg, rec, ticks_np, state, params_at = production_problem(dev)
+    g0 = dict(graphs.COUNTS)
     t0 = time.perf_counter()
     for k in range(N_WARM):
         state, _ = sqp.solve_mpc(state, params_at(k), cfg)
@@ -589,7 +591,10 @@ def production_solve(dev, bc, card):
              f"{N_WARM + 1}")
     phase(f"  kernel launches {launches} = {per_solve} x {N_WARM + 1} "
           f"batched solves, chol_solve {solves} = {per_solve_sub} x "
-          f"{N_WARM + 1}; warm chain {warm_s:.3f} s")
+          f"{N_WARM + 1}; CUDA graphs: "
+          f"{graphs.COUNTS['captures'] - g0['captures']} captures, "
+          f"{graphs.COUNTS['replays'] - g0['replays']} replays; warm chain "
+          f"{warm_s:.3f} s")
     phase(f"  {B / solve_s:.1f} solves/s at B={B} ({solve_s * 1e3:.2f} ms "
           f"per batched solve) on {card}")
     return B / solve_s

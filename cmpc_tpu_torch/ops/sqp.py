@@ -23,10 +23,10 @@ from cmpc_tpu_torch.config import WalkConfig
 from cmpc_tpu_torch.consts import const
 from cmpc_tpu_torch.models import centroidal as cm
 from cmpc_tpu_torch.ocp import condense, problem
-from cmpc_tpu_torch.ops import blocktri
+from cmpc_tpu_torch.ops import blocktri, pdip
 from cmpc_tpu_torch.ops.admm import ADMMSettings, admm_solve
-from cmpc_tpu_torch.ops.pdip import PDIPSettings, pdip_solve
-from cmpc_tpu_torch.runtime import spans
+from cmpc_tpu_torch.ops.pdip import PDIPSettings
+from cmpc_tpu_torch.runtime import graphs, spans
 
 LAM_CAP = 1e4
 ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.0)
@@ -141,94 +141,154 @@ def solve_mpc(state: SolverState, params: problem.MPCParams,
         raise ValueError(f"unknown mpc_solver {cfg.mpc_solver!r}")
 
 
-def _solve_mpc_condip(state: SolverState, params: problem.MPCParams,
-                      cfg: WalkConfig, soft_q=None):
-    N = cfg.N
-    nU = 32 * N
-    B = params.x0.shape[0]
-    dt, dev = params.x0.dtype, params.x0.device
-    l_c, u_c = _bounds(cfg, dev, dt)
-    n_eq = 20 * (N + 1)
+class _Iterate(NamedTuple):
+    """What an SQP iteration of the condip solve hands the next."""
 
-    # proximal weights over dU: foot-velocity / yaw-rate inputs exempt
-    w_prox_u = torch.ones(N, 32, dtype=dt, device=dev)
-    w_prox_u[:, 24:] = 1e-3
-    w_prox_u = w_prox_u.reshape(-1)
-    settings = PDIPSettings(iters=cfg.pdip_iters, refine=cfg.pdip_refine)
-    if soft_q is None:
-        # once a solve, not once an SQP iteration: its eigh makes the host
-        # wait for the device
-        soft_q = condense.soft_row_q(params.k1, params.mass)
+    X: torch.Tensor          # (B, N+1, 20) rollout of U
+    U: torch.Tensor          # (B, N, 32)
+    lam_soft: torch.Tensor   # (B, ns) Lyapunov/momentum multipliers
+    prox: torch.Tensor       # (B,) proximal weight on dU
+    r_dual: torch.Tensor     # (B,) the last IPM's dual residual
 
+
+def _warm_start(state: SolverState, params: problem.MPCParams, soft_q,
+                cfg: WalkConfig):
+    """The condip solve's first stage: the gait-consistent warm start and
+    its rollout.  Returns the first iterate and (state, params, soft_q) as
+    this stage read them, which the later stages read in its place."""
+    N, B = cfg.N, params.x0.shape[0]
+    n_eq, ns = 20 * (N + 1), condense.n_slack(cfg)
     with spans.span("sqp.warm_start"):
         U = prep_warmstart(state, params, cfg)
+        lam_soft = state.y[:, n_eq:n_eq + ns].clamp(0.0, LAM_CAP)
+        X = _rollout_X(params.x0, U, params, cfg)
+    it = _Iterate(X=X, U=U, lam_soft=lam_soft,
+                  prox=params.x0.new_full((B,), cfg.condip_prox),
+                  r_dual=params.x0.new_zeros(B))
+    return it, (state, params, soft_q)
 
+
+def _condense(it: _Iterate, params: problem.MPCParams, soft_q,
+              cfg: WalkConfig) -> condense.CondensedQP:
+    """The QP of an SQP iteration, condensed at the iterate."""
+    dt, dev = it.X.dtype, it.X.device
+    # proximal weights over dU: foot-velocity / yaw-rate inputs exempt
+    w_prox_u = torch.ones(cfg.N, 32, dtype=dt, device=dev)
+    w_prox_u[:, 24:] = 1e-3
+    return condense.build(problem.join_z(it.X, it.U), params, cfg, it.prox,
+                          w_prox_u.reshape(-1), lam_soft=it.lam_soft,
+                          soft=cfg.condip_soft, structured=True,
+                          soft_q=soft_q)
+
+
+def _line_search(it: _Iterate, qp: condense.CondensedQP, res,
+                 params: problem.MPCParams, cfg: WalkConfig) -> _Iterate:
+    """The step length per scenario from the QP's answer `res`, by the
+    merit of the nonlinear rollout; the next iterate."""
+    N = cfg.N
+    nU, n_eq, ns = 32 * N, 20 * (N + 1), condense.n_slack(cfg)
+    B = params.x0.shape[0]
+    l_c, u_c = _bounds(cfg, params.x0.device, params.x0.dtype)
+    dU = torch.nan_to_num(res.v[:, :nU], nan=0.0, posinf=0.0,
+                          neginf=0.0).reshape(B, N, 32)
+    lam_new = torch.nan_to_num(res.lam[:, :ns] * qp.row_scale[:, :ns])
+    lam_soft = lam_new.clamp(0.0, LAM_CAP)
+
+    with spans.span("sqp.line_search"):
+        # all step lengths at once, as a batch of nA * B candidates
+        # (alpha-major)
         nA = len(ALPHAS)
-        # the line search evaluates all step lengths at once as a batch of
-        # nA * B candidates (alpha-major)
         params_rep = problem.MPCParams(*(
             f.repeat(nA, *([1] * (f.dim() - 1))) for f in params))
+        U_cands = torch.stack([it.U + a * dU for a in ALPHAS])  # (nA,B,N,32)
+        U_flat = U_cands.reshape(nA * B, N, 32)
+        X_flat = _rollout_X(params_rep.x0, U_flat, params_rep, cfg)
+        zc = problem.join_z(X_flat, U_flat)
+        c = problem.constraints(zc, params_rep, cfg)[:, n_eq:]
+        viol = ((c - u_c[n_eq:]).clamp_min(0.0)
+                + (l_c[n_eq:] - c).clamp_min(0.0)).sum(1)
+        merits = (problem.cost_value(zc, params_rep, cfg)
+                  + condense.W_ELASTIC * viol).reshape(nA, B)
+        best = torch.argmin(torch.nan_to_num(merits, nan=float("inf")),
+                            dim=0)                                # (B,)
+        rows = torch.arange(B, device=dU.device)
+        U = U_cands[best, rows]
+        X = X_flat.reshape(nA, B, N + 1, 20)[best, rows]
+        rejected = best == nA - 1
+        small = best <= 1           # alpha >= 0.5 accepted
+        prox = torch.where(rejected, it.prox * 16.0,
+                           torch.where(small,
+                                       (it.prox / 4.0).clamp_min(
+                                           cfg.condip_prox), it.prox))
+        if spans.enabled():
+            spans.add("line_search.rejected", rejected.sum())
+            spans.add("line_search.rows", B)
+    return _Iterate(X=X, U=U, lam_soft=lam_soft, prox=prox,
+                    r_dual=res.r_dual)
 
-        def merit_of(Xc, Uc):
-            zc = problem.join_z(Xc, Uc)
-            c = problem.constraints(zc, params_rep, cfg)[:, n_eq:]
-            viol = ((c - u_c[n_eq:]).clamp_min(0.0)
-                    + (l_c[n_eq:] - c).clamp_min(0.0)).sum(1)
-            return problem.cost_value(zc, params_rep, cfg) \
-                + condense.W_ELASTIC * viol
 
-        ns = condense.n_slack(cfg)
-        lam_soft = state.y[:, n_eq:n_eq + ns].clamp(0.0, LAM_CAP)
-
-        X = _rollout_X(params.x0, U, params, cfg)
-    prox = params.x0.new_full((B,), cfg.condip_prox)
-    r_dual = params.x0.new_zeros(B)
-    rows = torch.arange(B, device=dev)
-    for _ in range(cfg.sqp_iters):
-        z = problem.join_z(X, U)
-        qp = condense.build(z, params, cfg, prox, w_prox_u,
-                            lam_soft=lam_soft, soft=cfg.condip_soft,
-                            structured=True, soft_q=soft_q)
-        res = pdip_solve(qp.H, qp.g, qp.C, qp.d, settings,
-                         C_blk=qp.C_blk, d_blk=qp.d_blk)
-        dU = torch.nan_to_num(res.v[:, :nU], nan=0.0, posinf=0.0,
-                              neginf=0.0).reshape(B, N, 32)
-        lam_new = torch.nan_to_num(res.lam[:, :ns] * qp.row_scale[:, :ns])
-        lam_soft = lam_new.clamp(0.0, LAM_CAP)
-
-        with spans.span("sqp.line_search"):
-            U_cands = torch.stack([U + a * dU for a in ALPHAS])  # (nA,B,N,32)
-            U_flat = U_cands.reshape(nA * B, N, 32)
-            X_flat = _rollout_X(params_rep.x0, U_flat, params_rep, cfg)
-            merits = merit_of(X_flat, U_flat).reshape(nA, B)
-            best = torch.argmin(torch.nan_to_num(merits, nan=float("inf")),
-                                dim=0)                            # (B,)
-            U = U_cands[best, rows]
-            X = X_flat.reshape(nA, B, N + 1, 20)[best, rows]
-            rejected = best == nA - 1
-            small = best <= 1           # alpha >= 0.5 accepted
-            prox = torch.where(rejected, prox * 16.0,
-                               torch.where(small,
-                                           (prox / 4.0).clamp_min(
-                                               cfg.condip_prox), prox))
-            if spans.enabled():
-                spans.add("line_search.rejected", rejected.sum())
-                spans.add("line_search.rows", B)
-        r_dual = res.r_dual
-
-    z = problem.join_z(X, U)
+def _finish(it: _Iterate, state: SolverState, params: problem.MPCParams,
+            cfg: WalkConfig):
+    """The solve's answer and its residuals from the last iterate."""
+    N = cfg.N
+    n_eq, ns = 20 * (N + 1), condense.n_slack(cfg)
+    l_c, u_c = _bounds(cfg, params.x0.device, params.x0.dtype)
+    z = problem.join_z(it.X, it.U)
     c_final = problem.constraints(z, params, cfg)
     viol_all = (c_final - u_c).clamp_min(0.0) \
         + (l_c - c_final).clamp_min(0.0)
     lyap = c_final[:, n_eq:n_eq + N]
     info = SolveInfo(
-        r_prim=viol_all.amax(dim=1), r_dual=r_dual,
+        r_prim=viol_all.amax(dim=1), r_dual=it.r_dual,
         cost=problem.cost_value(z, params, cfg),
         lyap_violation=lyap.clamp_min(0.0).amax(dim=1),
     )
     y = state.y.clone()
-    y[:, n_eq:n_eq + ns] = lam_soft
+    y[:, n_eq:n_eq + ns] = it.lam_soft
     return SolverState(z=z, y=y), info
+
+
+# the interior point as the solve calls it: each solve looks it up here, so
+# that a wrapper set in its place sees every call
+pdip_solve = graphs.Graphed(pdip.pdip_solve)
+_GRAPHED = (graphs.Graphed(_warm_start), graphs.Graphed(_condense),
+            graphs.Graphed(_line_search), graphs.Graphed(_finish, fresh=True))
+
+
+def _solve_mpc_condip(state: SolverState, params: problem.MPCParams,
+                      cfg: WalkConfig, soft_q=None):
+    """The condip solve.  On the card each stage (the warm start, then per
+    SQP iteration condensing, the interior point and the line search, then
+    the answer's residuals) replays a CUDA graph of its own
+    (``runtime/graphs``): the same kernels on the same numbers, started by
+    one host call a stage.  The answer is fresh tensors."""
+    warm, cond, search, finish = _GRAPHED
+    return _condip(state, params, cfg, soft_q, warm, cond, pdip_solve,
+                   search, finish)
+
+
+def _solve_mpc_condip_eager(state: SolverState, params: problem.MPCParams,
+                            cfg: WalkConfig, soft_q=None):
+    """The condip solve with every stage dispatched op by op on any
+    device: what the card's graphs are held to."""
+    return _condip(state, params, cfg, soft_q, _warm_start, _condense,
+                   pdip.pdip_solve, _line_search, _finish)
+
+
+def _condip(state, params, cfg, soft_q, warm, cond, qp_solve, search,
+            finish):
+    if soft_q is None:
+        # once a solve, not once an SQP iteration, and outside any graph:
+        # its eigh makes the host wait for the device
+        soft_q = condense.soft_row_q(params.k1, params.mass)
+    settings = PDIPSettings(iters=cfg.pdip_iters, refine=cfg.pdip_refine)
+    it, (state, params, soft_q) = warm(state, params, soft_q, cfg)
+    for _ in range(cfg.sqp_iters):
+        qp = cond(it, params, soft_q, cfg)
+        res = qp_solve(qp.H, qp.g, qp.C, qp.d, settings, C_blk=qp.C_blk,
+                       d_blk=qp.d_blk)
+        it = search(it, qp, res, params, cfg)
+    return finish(it, state, params, cfg)
 
 
 def _bounds(cfg: WalkConfig, dev, dt):

@@ -87,7 +87,7 @@ def add(name: str, n) -> None:
 
 
 def reset() -> None:
-    """Zero the counters of this module (the kernel launch and build
+    """Zero the counters of this module (the kernel launch, build and graph
     counters keep their own)."""
     _HOST.clear()
     _DEVICE.clear()
@@ -96,13 +96,17 @@ def reset() -> None:
 def counters() -> dict:
     """Every counter's total (device counters read here, which
     synchronizes), with the port's kernel launches
-    (``batched_chol.LAUNCHES``) and nvcc seconds
-    (``cuda_build.BUILD_SECONDS``) under those names."""
+    (``batched_chol.LAUNCHES``), nvcc seconds
+    (``cuda_build.BUILD_SECONDS``) and CUDA graph captures and replays
+    (``graphs.COUNTS``) under those names."""
     from cmpc_tpu_torch.ops import batched_chol, cuda_build
+    from cmpc_tpu_torch.runtime import graphs
 
     out = dict(_HOST)
     for name, t in _DEVICE.items():
         out[name] = out.get(name, 0) + t.item()
     out["batched_chol.LAUNCHES"] = dict(batched_chol.LAUNCHES)
     out["cuda_build.BUILD_SECONDS"] = dict(cuda_build.BUILD_SECONDS)
+    out["graphs.captures"] = graphs.COUNTS["captures"]
+    out["graphs.replays"] = graphs.COUNTS["replays"]
     return out

@@ -30,7 +30,8 @@ TICKS = np.array([150, 250, 262, 300, 420, 520])
 WARM = 3
 SOLVE_SPANS = ("sqp.warm_start", "condense.build", "pdip.pdip_solve",
                "sqp.line_search")
-KERNEL_COUNTERS = {"batched_chol.LAUNCHES", "cuda_build.BUILD_SECONDS"}
+KERNEL_COUNTERS = {"batched_chol.LAUNCHES", "cuda_build.BUILD_SECONDS",
+                   "graphs.captures", "graphs.replays"}
 
 
 @pytest.fixture(autouse=True)

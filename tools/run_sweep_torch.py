@@ -104,8 +104,10 @@ def scenario_rows(acc: np.ndarray, ticks: int, fall_chunk) -> list:
 def plain_tile():
     """Put chol_inv_tile_ref in the tile kernel's place on every path (the
     tile step of ops/batched_chol.blocked_cholesky), for the rest of the
-    process.  No kernel is launched after it, on any device."""
-    from cmpc_tpu_torch.ops import batched_chol as bc
+    process.  No kernel is launched after it, on any device.  The plain
+    step waits on the device (its clamp check), which no CUDA graph can
+    hold, so the solve runs op by op from then on."""
+    from cmpc_tpu_torch.ops import batched_chol as bc, sqp
 
     def into(A, L, X):
         Lk, Xk = bc.chol_inv_tile_ref(A.contiguous())
@@ -113,6 +115,7 @@ def plain_tile():
         X.copy_(Xk)
 
     bc.chol_inv_tile_into = into
+    sqp._solve_mpc_condip = sqp._solve_mpc_condip_eager
 
 
 def _save_state(path: str, state, fall_chunk, wall: float, ident: dict):

@@ -57,7 +57,7 @@ def main(argv=None):
 
     import step_parity_torch
     import tile_check
-    from cmpc_tpu_torch.ops import batched_chol as bc
+    from cmpc_tpu_torch.ops import batched_chol as bc, sqp
 
     kernel_into = bc.chol_inv_tile_into
     outputs = ("L_kernel", "X_kernel", "L_ref", "X_ref", "L_f64", "X_f64",
@@ -114,11 +114,16 @@ def main(argv=None):
             tally(routed_diff, tile_check.bit_mismatch(
                 L[idx], bc._chol_tile_loop(A.contiguous()[idx])))
 
+    # the recording step waits on the device and must see every call: the
+    # solve runs op by op, not from CUDA graphs
+    graphed = sqp._solve_mpc_condip
     bc.chol_inv_tile_into = into
+    sqp._solve_mpc_condip = sqp._solve_mpc_condip_eager
     try:
         parity = step_parity_torch.run(args.carries, args.device)
     finally:
         bc.chol_inv_tile_into = kernel_into
+        sqp._solve_mpc_condip = graphed
     got = {k: torch.cat(v).cpu().numpy() for k, v in rec.items()}
     fin = got["finite_in"]
     pd = got["pd"] & fin          # LAPACK passes a NaN pivot as PD
