@@ -8,7 +8,11 @@
   substitution, reusing the tile inverses.
 * :func:`spd_inverse` — M^-1 = L^-T L^-1.
 
-:func:`chol_inv_tile` is the one kernel of the solver path: on a CUDA
+These inverses, with :func:`spd_inverse_any`, :func:`spd_inverse64` and
+:func:`tri_inv_blocked`, are the JAX package's Newton step and the tests'
+reference for the substitution below; no program path calls them.
+
+:func:`chol_inv_tile` is the solver path's tile kernel: on a CUDA
 tensor it launches the hand-written Hopper kernel
 ``csrc/chol_inv_tile.cu`` (the port of the Pallas kernel
 ``_chol_inv_tile_pallas``); on a CPU tensor it runs the plain torch
@@ -23,10 +27,10 @@ where it lies and has L and the tile inverse written into place.
 
 :func:`chol_solve` applies the blocked factor to a right-hand side by
 block forward and back substitution: on a CUDA tensor the hand-written
-kernel ``csrc/chol_solve.cu`` (it replaces no TPU kernel; the card's
-interior point takes it in place of the explicit inverse), on a CPU tensor
-its plain version :func:`chol_solve_ref`.  :func:`spd_factor64` and
-:func:`spd_solve64` pad any n as :func:`spd_inverse64` does.  Matrix
+kernel ``csrc/chol_solve.cu`` (it replaces no TPU kernel), on a CPU
+tensor its plain version :func:`chol_solve_ref`; the interior point takes
+it on every device in place of the explicit inverse.  :func:`spd_factor64`
+and :func:`spd_solve64` pad any n as :func:`spd_inverse64` does.  Matrix
 products are plain ``torch.matmul``; the callers pin full-f32 matmuls
 (TF32 off).
 """
@@ -375,8 +379,9 @@ def _pad_identity(M, nb: int):
 
 
 def spd_inverse64(M):
-    """SPD inverse with block size 64 — the interior-point Newton inverse.
-    Batch-first code needs no counterpart of the JAX custom_vmap rule."""
+    """SPD inverse with block size 64 — the JAX package's interior-point
+    Newton inverse.  Batch-first code needs no counterpart of the JAX
+    custom_vmap rule."""
     return spd_inverse_any(M, nb=TILE)
 
 

@@ -24,7 +24,6 @@ import numpy as np
 import torch
 
 from cmpc_tpu_torch.consts import const
-from cmpc_tpu_torch.ops.pdip import _cho_factor
 
 
 class StagePerm(NamedTuple):
@@ -90,6 +89,14 @@ def build_blocks(P, A, rho_diag, sigma, sp: StagePerm):
     O = torch.einsum("bmsi,bmsj->bsij", Arho[:, :, :-1], Ast[:, :, 1:])
     O = O + torch.diagonal(Pblk, offset=1, dim1=1, dim2=3).permute(0, 3, 1, 2)
     return D, O
+
+
+def _cho_factor(M):
+    """Lower Cholesky factor; NaN-filled where M is not PD (as LAPACK-backed
+    cho_factor reports a failed factorization)."""
+    L, info = torch.linalg.cholesky_ex(M)
+    return torch.where((info != 0)[:, None, None],
+                       torch.full_like(L, float("nan")), L)
 
 
 class BlockFactor(NamedTuple):

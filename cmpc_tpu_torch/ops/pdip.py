@@ -5,22 +5,11 @@ Solves, per scenario b,  min 1/2 v'H_b v + g_b'v  s.t.  C_b v <= d_b
 (plus the optional per-stage blocks C_blk/d_blk) with a fixed iteration
 count, so every scenario runs in lockstep.  Every reduction — the cost
 scale, mu, the fraction-to-boundary step and the non-finite guard — is
-taken per scenario.  By default (``explicit_inv=True``) each iteration
-inverts the Newton matrix explicitly, as the JAX package does (through
-:func:`batched_chol.spd_inverse64` for n >= 128, the library's Cholesky
-below that or with ``inv_method="xla"``), and applies the inverse as a
-matrix; ``explicit_inv=False`` factors it once per iteration and applies
-the factor by substitution to each right-hand side.
-
-On a CUDA device the blocked route (``explicit_inv=True``,
-``inv_method="blocked"``, n >= 128) forms no inverse: the iteration takes
-the blocked factor (:func:`batched_chol.spd_factor64`, the tile kernel) and
-applies it to each right-hand side by block substitution, in the kernel
-``csrc/chol_solve.cu`` (:func:`batched_chol.spd_solve64`).  On the TPU the
-inverse's blocked products beat a substitution; on the card the inverse
-costs 3.2x the factor's operations, and its product reads as many bytes as
-the substitution.  The same M^-1 is applied to the same right-hand sides,
-rounded as a substitution rounds.
+taken per scenario.  Each iteration takes the Newton matrix's blocked
+factor once (:func:`batched_chol.spd_factor64`) and applies it to each
+right-hand side by block substitution (:func:`batched_chol.spd_solve64`),
+on every device and at every n; the CPU tests hold it to the JAX package's
+explicit inverse.
 """
 
 from __future__ import annotations
@@ -32,28 +21,18 @@ import torch
 import torch.nn.functional as F
 
 from cmpc_tpu_torch.consts import const
-from cmpc_tpu_torch.ops.batched_chol import (spd_factor64, spd_inverse64,
-                                             spd_solve64)
+from cmpc_tpu_torch.ops.batched_chol import spd_factor64, spd_solve64
 from cmpc_tpu_torch.runtime import spans
 
 
 class PDIPSettings(NamedTuple):
-    """The JAX package's settings, fields and defaults.  Under
-    ``explicit_inv=True`` with ``inv_method="blocked"`` and n >= 128 a CUDA
-    device applies the blocked factor by substitution instead of forming
-    M^-1 (module docstring); everything else runs as the fields say."""
+    """The JAX package's settings and defaults, less its two choices of
+    Newton step (module docstring)."""
     iters: int = 15
     tau: float = 0.95          # fraction-to-boundary
     reg: float = 1e-8          # Newton-matrix diagonal regularization
     d_clip: float = 1e8        # clip on the complementarity scaling lam/w
     mu_min: float = 1e-9       # barrier floor
-    # apply M^-1 as an explicit matrix (False: one factorization per
-    # iteration, applied to each right-hand side by substitution)
-    explicit_inv: bool = True
-    # how the explicit inverse is built: "blocked" = batched_chol (the
-    # tile kernel) for n >= 128; anything else ("xla" in the JAX package's
-    # name) = the library's Cholesky and solve against I
-    inv_method: str = "blocked"
     refine: int = 2            # iterative-refinement passes per solve
 
 
@@ -71,28 +50,6 @@ def _mv(A, x):
 
 def _mtv(A, x):
     return (A.transpose(-1, -2) @ x[..., None])[..., 0]
-
-
-def _inverse_solver(M):
-    """The JAX package's Newton step: M^-1 formed by the blocked inverse
-    and applied as a matrix."""
-    Minv = spd_inverse64(M)
-    return lambda rhs: _mv(Minv, rhs)
-
-
-def _substitution_solver(M):
-    """The card's Newton step: M's blocked factor, applied to each
-    right-hand side by block substitution; M^-1 is never formed."""
-    L, Dinv = spd_factor64(M)
-    return lambda rhs: spd_solve64(L, Dinv, rhs)
-
-
-def _cho_factor(M):
-    """Lower Cholesky factor; NaN-filled where M is not PD (as LAPACK-backed
-    cho_factor reports a failed factorization)."""
-    L, info = torch.linalg.cholesky_ex(M)
-    return torch.where((info != 0)[:, None, None],
-                       torch.full_like(L, float("nan")), L)
 
 
 @spans.spanned("pdip.pdip_solve")
@@ -173,31 +130,13 @@ def pdip_solve(H, g, C, d, settings: PDIPSettings = PDIPSettings(),
 
         dscale = torch.clamp(lam / w, 1e-12, d_clip)
         M = newton_matrix(dscale, reg)
-        if settings.explicit_inv and settings.inv_method == "blocked" \
-                and n >= 128:
-            # the blocked factor (and its tile kernel) at the MPC's sizes:
-            # on the card applied by substitution, elsewhere inverted
-            solve = (_substitution_solver if dev.type == "cuda"
-                     else _inverse_solver)(M)
-        elif settings.explicit_inv:
-            # small QPs, off the production path, take the library's
-            # Cholesky as the JAX package takes its cho path there
-            Minv = torch.cholesky_solve(eye_n.expand(B, n, n),
-                                        _cho_factor(M))
-
-            def solve(rhs):
-                return _mv(Minv, rhs)
-        else:
-            chol = _cho_factor(M)
-
-            def solve(rhs):
-                return torch.cholesky_solve(rhs[..., None], chol)[..., 0]
+        L, Dinv = spd_factor64(M)
 
         def newton(r_c):
             rhs = -r_d + CTmv((r_c - lam * r_p) / w)
-            dv = solve(rhs)
+            dv = spd_solve64(L, Dinv, rhs)
             for _ in range(settings.refine):
-                dv = dv + solve(rhs - _mv(M, dv))
+                dv = dv + spd_solve64(L, Dinv, rhs - _mv(M, dv))
             dw = -r_p - Cmv(dv)
             dlam = (-r_c - lam * dw) / w
             return dv, dw, dlam

@@ -293,17 +293,20 @@ def test_condense_structured_matches_dense():
 
 
 def test_pdip_settings_fields_and_defaults():
-    """The port's PDIPSettings: JAX's fields, in JAX's order, with JAX's
-    defaults (PDIPSettings(explicit_inv=False) is valid in both)."""
-    assert tpdip.PDIPSettings._fields == jpdip.PDIPSettings._fields
-    assert tpdip.PDIPSettings._field_defaults == \
-        jpdip.PDIPSettings._field_defaults
-    assert tpdip.PDIPSettings(explicit_inv=False).inv_method == "blocked"
+    """The port's PDIPSettings: JAX's fields less its two choices of Newton
+    step (explicit_inv, inv_method), in JAX's order, with JAX's
+    defaults."""
+    step = ("explicit_inv", "inv_method")
+    assert tpdip.PDIPSettings._fields == tuple(
+        f for f in jpdip.PDIPSettings._fields if f not in step)
+    assert tpdip.PDIPSettings._field_defaults == {
+        k: v for k, v in jpdip.PDIPSettings._field_defaults.items()
+        if k not in step}
 
 
 def _qp320(seed):
     """A strictly convex QP at the MPC's size, n = 320 (the blocked
-    inverse's 5 tiles), m = 400 rows, f64."""
+    factor's 5 tiles), m = 400 rows, f64."""
     rng = np.random.default_rng(seed)
     n, m = 320, 400
     A = rng.normal(size=(B, n, n)) / np.sqrt(n)
@@ -314,47 +317,69 @@ def _qp320(seed):
     return H, g, C, d
 
 
-@pytest.mark.parametrize("kw", [dict(explicit_inv=False),
+@pytest.mark.parametrize("kw", [dict(), dict(explicit_inv=False),
                                 dict(inv_method="xla")],
-                         ids=["substitution", "library_inverse"])
+                         ids=["blocked_inverse", "substitution",
+                              "library_inverse"])
 def test_pdip_solve_other_newton_paths(kw):
-    """The two Newton paths besides the blocked inverse, at n = 320 and the
-    solver's 8 iterations (mu ~6e-7): against JAX's same path at 1e-8, and
-    against the port's blocked path.  (Past ~10 iterations this QP's f64
+    """The port's one Newton step (the blocked factor applied by block
+    substitution) against each of JAX's three, at n = 320 and the solver's
+    8 iterations (mu ~6e-7), at 1e-8.  (Past ~10 iterations this QP's f64
     endgame turns rounding differences of 1e-16 into 1e-5 on lam, in either
     package and on every path.)"""
     qp = _qp320(8)
     j = vm(lambda *a: jpdip.pdip_solve(*a, jpdip.PDIPSettings(iters=8,
                                                               **kw)))(
         *map(jnp.asarray, qp))
-    t = tpdip.pdip_solve(*map(torch.tensor, qp),
-                         tpdip.PDIPSettings(iters=8, **kw))
+    t = tpdip.pdip_solve(*map(torch.tensor, qp), tpdip.PDIPSettings(iters=8))
     for name in j._fields:
         close(getattr(t, name), getattr(j, name), tol=1e-8)
-    blocked = tpdip.pdip_solve(*map(torch.tensor, qp),
-                               tpdip.PDIPSettings(iters=8))
-    for name in ("v", "lam"):
-        close(getattr(t, name), getattr(blocked, name), tol=1e-8)
     assert float(t.r_prim.max()) < 1e-8 and float(t.mu.max()) < 1e-6
 
 
-def test_pdip_library_inverse_gives_nan_where_not_pd():
-    """A scenario whose Newton matrix is not positive definite gets NaN from
-    the library factorization (as JAX's cho_factor reports it), and the
-    guarded update freezes it; the others solve."""
+def test_pdip_newton_step_factors_once_and_substitutes(monkeypatch):
+    """Each interior-point iteration factors the Newton matrix once
+    (spd_factor64) and applies the factor by substitution (spd_solve64) to
+    every right-hand side: (1 + refine) solves each for the predictor and
+    the corrector.  No inverse is formed, on the CPU as on the card."""
+    factor, solve = tpdip.spd_factor64, tpdip.spd_solve64
+    factored, solved = [], []
+
+    def counted_factor(M):
+        factored.append(tuple(M.shape))
+        return factor(M)
+
+    def counted_solve(L, Dinv, b):
+        solved.append(tuple(b.shape))
+        return solve(L, Dinv, b)
+
+    monkeypatch.setattr(tpdip, "spd_factor64", counted_factor)
+    monkeypatch.setattr(tpdip, "spd_solve64", counted_solve)
+    iters, refine = 3, 2
+    t = tpdip.pdip_solve(*map(torch.tensor, _qp320(10)),
+                         tpdip.PDIPSettings(iters=iters, refine=refine))
+    assert factored == [(B, 320, 320)] * iters
+    assert solved == [(B, 320)] * (iters * 2 * (1 + refine))
+    assert torch.isfinite(t.v).all()
+
+
+def test_pdip_non_pd_row_is_frozen():
+    """A scenario whose Newton matrix is not positive definite gets a
+    non-finite direction from the blocked factor, and the guarded update
+    freezes it at its start (v = 0); the others solve."""
     H, g, C, d = _qp320(9)
     H[1] = -np.eye(320)
-    for kw in (dict(explicit_inv=False), dict(inv_method="xla")):
-        t = tpdip.pdip_solve(*map(torch.tensor, (H, g, C, d)),
-                             tpdip.PDIPSettings(iters=4, **kw))
-        assert torch.equal(t.v[1], torch.zeros(320, dtype=torch.float64))
-        assert torch.isfinite(t.v[[0, 2]]).all()
-        assert float(t.r_prim[[0, 2]].max()) < 1e-3
+    t = tpdip.pdip_solve(*map(torch.tensor, (H, g, C, d)),
+                         tpdip.PDIPSettings(iters=4))
+    assert torch.equal(t.v[1], torch.zeros(320, dtype=torch.float64))
+    assert torch.isfinite(t.v[[0, 2]]).all()
+    assert float(t.r_prim[[0, 2]].max()) < 1e-3
 
 
 def test_pdip_solve_small_qp():
-    """A QP below the blocked-inverse size (n < 128), dense rows only: the
-    LAPACK-Cholesky branch of the Newton inverse, against JAX at 1e-8."""
+    """A QP below one tile (n = 24), dense rows only: the blocked factor
+    pads M with an identity tail to n = 64 and the right-hand sides with
+    zeros; against JAX (its library-Cholesky branch there) at 1e-8."""
     rng = np.random.default_rng(6)
     n, m = 24, 40
     A = rng.normal(size=(B, n, n))

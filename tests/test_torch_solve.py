@@ -92,8 +92,9 @@ def test_warmstart_helpers(x64):
 
 
 def test_pdip_solve_production_qp(x64):
-    """pdip_solve (C_blk form, explicit blocked inverse) on the first SQP
-    subproblem of production solves: v, lam and residuals at 1e-8."""
+    """pdip_solve (C_blk form; the blocked factor applied by substitution)
+    on the first SQP subproblem of production solves, against JAX's
+    explicit blocked inverse: v, lam and residuals at 1e-8."""
     P, sc = walk_params()
     st = jax.vmap(lambda p: jsqp.init_solver_state(JCFG, p.x0,
                                                    mass=sc.mpc_mass))(P)
@@ -143,53 +144,6 @@ def test_pdip_solve_production_qp(x64):
         np.testing.assert_allclose(getattr(tqp, name).numpy(), b, rtol=0,
                                    atol=1e-10 * max(1.0, np.abs(b).max()),
                                    err_msg=name)
-
-
-def test_pdip_substitution_route_matches_explicit_route(x64, monkeypatch):
-    """The card's Newton step (pdip._substitution_solver: the blocked factor
-    applied by block substitution, through chol_solve's plain version here)
-    in the explicit inverse's place, on the CPU, f64, on the production QP
-    of test_pdip_solve_production_qp (the port's own condensing); the route
-    is taken once per interior-point iteration.  v, r_prim and mu equal the
-    explicit route's at 1e-9 (measured: 1e-10 on v, of up to 68).  The duals
-    lam and r_dual are held at 1e-7 of their largest magnitude: through
-    four iterations they agree to 3e-11 of ~7e3, but in the eighth, where
-    slacks near 1e-10 multiply a direction's rounding by lam / w, lam moves
-    by 2.2e-5 of 1.75e3 (1.3e-8) and r_dual by 3.0e-6 of 483 -- the same
-    distance, to three digits, as between the explicit route and the
-    library's Cholesky route (explicit_inv=False): the conditioning's, not
-    the substitution's."""
-    P, _ = walk_params()
-    tP = convert.params_from_numpy(as_numpy(P))
-    tst = tsqp.init_solver_state(CFG, tP.x0, mass=tP.mass)
-    U = tsqp.prep_warmstart(tst, tP, CFG)
-    X = tsqp._rollout_X(tP.x0, U, tP, CFG)
-    w = torch.ones(CFG.N, 32, dtype=torch.float64)
-    w[:, 24:] = 1e-3
-    qp = tcond.build(tprob.join_z(X, U), tP, CFG, 0.1, w.reshape(-1),
-                     lam_soft=torch.zeros(len(TICKS), CFG.N + 1,
-                                          dtype=torch.float64),
-                     soft=False, structured=True)
-    s = tpdip.PDIPSettings(iters=CFG.pdip_iters, refine=CFG.pdip_refine)
-    args = (qp.H, qp.g, qp.C, qp.d, s)
-    blk = {"C_blk": qp.C_blk, "d_blk": qp.d_blk}
-    explicit = tpdip.pdip_solve(*args, **blk)
-    taken = []
-
-    def substitution(M):
-        taken.append(M.shape)
-        return tpdip._substitution_solver(M)
-
-    monkeypatch.setattr(tpdip, "_inverse_solver", substitution)
-    sub = tpdip.pdip_solve(*args, **blk)
-    assert taken == [(len(TICKS), 320, 320)] * CFG.pdip_iters
-    for name in explicit._fields:
-        a = getattr(explicit, name).numpy()
-        tol = 1e-7 if name in ("lam", "r_dual") else 1e-9
-        np.testing.assert_allclose(getattr(sub, name).numpy(), a, rtol=0,
-                                   atol=tol * max(1.0, np.abs(a).max()),
-                                   err_msg=name)
-    assert not torch.equal(sub.v, explicit.v)     # rounded another way
 
 
 def test_solve_mpc_on_recorded_ticks(x64):
