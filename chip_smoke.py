@@ -8,9 +8,10 @@ line, and no phase carries on on the CPU):
   1. device check — needs torch.cuda; prints the card's name and power
      limit as nvidia-smi reports them;
   2. kernel build — compiles csrc/chol_inv_tile.cu and csrc/chol_tile.cu
-     (both include csrc/chol_tile_common.cuh) and csrc/chol_solve.cu with
-     nvcc (sm_90a), all at once, and reads ptxas' report, which is kept
-     beside each library: registers per kernel, no spills;
+     (both include csrc/chol_tile_common.cuh), csrc/chol_solve.cu and
+     csrc/newton_matrix.cu with nvcc (sm_90a), all at once, and reads
+     ptxas' report, which is kept beside each library: registers per
+     kernel, no spills;
   3. kernel vs plain — the tile Cholesky+inverse kernel (chol_inv_tile)
      and the factor-only kernel (chol_tile) against their plain torch
      versions on random SPD tiles (f32 at rtol=atol=2e-5, f64 against
@@ -34,12 +35,17 @@ line, and no phase carries on on the CPU):
      at B = 1, 7 and 2048 on 320 x 320 systems (f32 within 2e-6 of |x|'s
      largest, f64 within 1e-14), a NaN tile poisoning its scenario only,
      and its time at (2048, 320) f32 beside its bound, the plain version's
-     and torch.cholesky_solve's;
+     and torch.cholesky_solve's; the Newton matrix kernel (newton_matrix)
+     at the benchmark's shapes (B = 2048, n = 320, 141 dense rows with
+     their widths, the stage blocks) in f32 and f64 against the plain
+     expression in f64, entry by entry within 8 (m_d + 2) u of the sum of
+     the terms' magnitudes, the same bits without the widths, and its time
+     at f32 beside its bound and the plain expression's;
   4. production-state solve — 256 recorded walk states
      (assets/walk_x0.npz) replayed as bench.py does: 12-solve warm chain,
      then one timed batched solve, held to bench.py's accuracy gate; 96
      substitutions per solve (the Newton step applies the factor, it
-     forms no inverse);
+     forms no inverse) and 24 Newton matrices;
   5. closed-loop walk — 500 ticks of the nominal walk (B=1, f32), held to
      the tracking/solver envelopes of tests/test_closed_loop.py;
   6. sweep — 256 differing scenarios (parallel/mesh.make_batch, seed 7)
@@ -497,6 +503,80 @@ def check_solve_kernel(bc, dev):
     return out
 
 
+def check_newton_kernel(bc, dev):
+    """Phase 3, the Newton matrix kernel: at the benchmark's shapes
+    (SOLVE_B, SOLVE_N, 141 dense rows with their widths, the stage blocks)
+    in f32 and f64 against the plain expression in f64, within 8 (m_d + 2)
+    u of the terms' magnitudes (u the type's unit roundoff), the same bits
+    without the widths; its time at f32 beside its bound and the plain
+    expression's."""
+    import torch
+    from cmpc_tpu_torch.ocp import condense
+    from cmpc_tpu_torch.ops import pdip
+    B, n, Nb, rb, cb = SOLVE_B, SOLVE_N, 10, 40, 24
+    widths = condense.dense_row_widths(Nb, False)
+    m_d = len(widths)
+    g = torch.Generator(device=dev).manual_seed(1)
+    f64 = torch.float64
+    X = torch.randn(B, n, n, generator=g, device=dev, dtype=f64)
+    H = X + X.transpose(1, 2)
+    del X
+    C = torch.randn(B, m_d, n, generator=g, device=dev, dtype=f64)
+    C *= torch.arange(n, device=dev)[None] < torch.tensor(
+        widths, device=dev)[:, None]
+    dscale = torch.exp(torch.empty(B, m_d + Nb * rb, device=dev, dtype=f64)
+                       .uniform_(-9.0, 9.0, generator=g))
+    C_blk = torch.randn(B, Nb, rb, cb, generator=g, device=dev, dtype=f64)
+    errs = {}
+    for dtype, reg in ((torch.float32, 1e-7), (torch.float64, 1e-8)):
+        args = [x.to(dtype) for x in (H, C, dscale, C_blk)]
+        M = pdip.newton_matrix(*args[:3], reg, args[3], widths)
+        if not torch.equal(pdip.newton_matrix(*args[:3], reg, args[3]), M):
+            fail(f"newton_matrix {dtype}: leaving out the rows past their "
+                 f"widths changes M")
+        want = pdip.newton_matrix_ref(*(x.double() for x in args[:3]), reg,
+                                      args[3].double())
+        err = (M.double() - want).abs()
+        del M, want
+        size = pdip.newton_matrix_ref(*(x.double().abs() for x in args[:2]),
+                                      args[2].double(), reg,
+                                      args[3].double().abs())
+        bound = 8 * (m_d + 2) * torch.finfo(dtype).eps / 2 * size
+        misses = int((err > bound).sum())
+        errs[str(dtype)[6:]] = float((err / bound).max())
+        del err, size, bound
+        if misses:
+            fail(f"newton_matrix {dtype}: {misses} entries outside 8 "
+                 f"(m_d + 2) u of the plain expression in f64")
+    phase("  newton_matrix vs plain in f64 (largest |err| / bound): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + "; the same bits without the widths")
+
+    H, C, dscale, C_blk = (x.float() for x in (H, C, dscale, C_blk))
+    t_bytes = B * 4 * (n * (n + 1) + m_d * n + Nb * rb * cb + m_d
+                       + Nb * rb) / PEAK_BYTES_PER_S
+    flop = (sum(w * (w + 1) + w for w in widths)
+            + Nb * rb * (cb * (cb + 1) + cb) + n * (n + 1) // 2)
+    t_ops = B * flop / PEAK_F32_FLOP_PER_S
+    out = {"max_err_over_bound": errs,
+           "ms": min(graph_ms(lambda: pdip.newton_matrix(
+               H, C, dscale, 1e-7, C_blk, widths), 20, 10)
+               for _ in range(2)),
+           "plain_ms": min(graph_ms(lambda: pdip.newton_matrix_ref(
+               H, C, dscale, 1e-7, C_blk), 10, 5) for _ in range(2)),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    phase(f"  newton_matrix ({B},{n}) f32: kernel {out['ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms by "
+          f"{out['bound_by']} ({100 * out['share_of_bound']:.1f}%)")
+    if not out["ms"] < out["plain_ms"]:
+        fail("newton_matrix is not faster than its plain version")
+    del H, C, dscale, C_blk
+    torch.cuda.empty_cache()
+    return out
+
+
 def production_problem(dev, cfg=None):
     """The replay of bench.py: 256 recorded production-walk ticks spread
     over the walking phase, for WalkConfig() or the given configuration.
@@ -564,6 +644,7 @@ def production_solve(dev, bc, card):
     solve_s = time.perf_counter() - t0
     launches = bc.LAUNCHES["chol_inv_tile"]
     solves = bc.LAUNCHES["chol_solve"]
+    formed = bc.LAUNCHES["newton_matrix"]
 
     r_prim = info.r_prim.cpu().numpy().astype(np.float64)
     lyap = info.lyap_violation.cpu().numpy().astype(np.float64)
@@ -589,8 +670,13 @@ def production_solve(dev, bc, card):
     if solves != per_solve_sub * (N_WARM + 1):
         fail(f"chol_solve launches {solves} != {per_solve_sub} x "
              f"{N_WARM + 1}")
+    per_solve_nm = cfg.pdip_iters * cfg.sqp_iters
+    if formed != per_solve_nm * (N_WARM + 1):
+        fail(f"newton_matrix launches {formed} != {per_solve_nm} x "
+             f"{N_WARM + 1}")
     phase(f"  kernel launches {launches} = {per_solve} x {N_WARM + 1} "
           f"batched solves, chol_solve {solves} = {per_solve_sub} x "
+          f"{N_WARM + 1}, newton_matrix {formed} = {per_solve_nm} x "
           f"{N_WARM + 1}; CUDA graphs: "
           f"{graphs.COUNTS['captures'] - g0['captures']} captures, "
           f"{graphs.COUNTS['replays'] - g0['replays']} replays; warm chain "
@@ -1362,7 +1448,7 @@ def main():
     print(smi_line, flush=True)
 
     # phase 2: build, one nvcc per source, all started together
-    kernels = ("chol_inv_tile", "chol_tile", "chol_solve")
+    kernels = ("chol_inv_tile", "chol_tile", "chol_solve", "newton_matrix")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(cuda_build.load_library, kernels))
@@ -1394,6 +1480,7 @@ def main():
         bc.LAUNCHES[k] = 0
     kres = check_kernels(bc, dev)
     sres = check_solve_kernel(bc, dev)
+    nres = check_newton_kernel(bc, dev)
     phase3_chol_tile = bc.LAUNCHES["chol_tile"]
 
     # phases 4-6 and 8: the main paths, each counted on its own
@@ -1414,6 +1501,7 @@ def main():
         "phase 4 production-state solve",
         lambda: production_solve(dev, bc, card))
     n_solve_sub = bc.LAUNCHES["chol_solve"]
+    n_solve_nm = bc.LAUNCHES["newton_matrix"]
     ticks_per_s, n_walk = counted("phase 5 closed-loop walk",
                                   lambda: closed_loop_walk(dev, card))
     (sweep_rate, fall_rate, rmse_alive), n_sweep = counted(
@@ -1487,7 +1575,14 @@ def main():
                  "applies the blocked factor by substitution instead of "
                  "forming the Newton inverse",
          "launches_production_solve": n_solve_sub,
-         **sres, "library_calls": 1}],
+         **sres, "library_calls": 1},
+        {"name": "newton_matrix", "route": "cuda",
+         "source": "cmpc_tpu_torch/csrc/newton_matrix.cu", "replaces": None,
+         "note": "replaces no TPU kernel: forms the interior point's Newton "
+                 "matrix in one pass, in place of a scaled copy, a GEMM and "
+                 "three dense passes",
+         "launches_production_solve": n_solve_nm,
+         **nres}],
         "card": smi_line, "build_s": build_s, "resources": resources,
         "solves_per_s_b256": solves_per_s,
         "walk_ticks_per_s_b1": ticks_per_s,

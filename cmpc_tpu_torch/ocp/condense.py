@@ -37,10 +37,32 @@ class CondensedQP(NamedTuple):
     row_scale: torch.Tensor  # (B, mc)
     C_blk: torch.Tensor | None = None   # (B, N, 40, 24)
     d_blk: torch.Tensor | None = None   # (B, N, 40)
+    C_width: tuple[int, ...] | None = None   # (mc,) dense_row_widths
 
 
 def n_slack(cfg: WalkConfig) -> int:
     return cfg.N + 1          # N Lyapunov rows + 1 momentum row
+
+
+@functools.lru_cache(maxsize=8)
+def dense_row_widths(N: int, soft: bool) -> tuple[int, ...]:
+    """Nonzero widths of the rows of C that :func:`build` gives with
+    ``structured=True``: row r is exactly 0 at columns >= width r, since
+    dx_0 = 0 makes the state of node i depend on the inputs of nodes < i
+    alone.  In C's order: [soft rows (Lyapunov N, momentum 1) | hard rows |
+    box | -box | slack rows], the slack rows only where `soft`; the soft
+    and slack rows reach their slack column nU + k."""
+    nU = 32 * N
+    ns = N + 1 if soft else 0
+    lyap = [32 * (i + 1) for i in range(N)]         # x_{i+1} and u_i
+    mom = [32]                                      # x_1
+    height = [32 * i for i in range(N)]             # x_i
+    box = [32 * (k + 1) for k in range(N) for _ in range(3)]   # x_{k+1}
+    G = lyap + mom + height + box + box
+    n_box = 6 * N
+    slack = [nU + k + 1 for k in range(ns)]
+    return tuple(slack + G[ns:len(G) - n_box] + 2 * G[len(G) - n_box:]
+                 + slack)
 
 
 @functools.lru_cache(maxsize=8)
@@ -174,7 +196,8 @@ def build(z, params: problem.MPCParams, cfg: WalkConfig, prox, w_prox_u,
     the friction/unilaterality rows as per-stage blocks (C_blk, d_blk) and
     no dense Jacobian; otherwise every row in C and C_blk = d_blk = None.
     soft_q: :func:`soft_row_q` of `params` (structured only), computed
-    here where not given."""
+    here where not given.  C_width: where structured, each row's nonzero
+    width (:func:`dense_row_widths`), else None."""
     N = cfg.N
     nX = 20 * (N + 1)
     nU = 32 * N
@@ -345,4 +368,6 @@ def build(z, params: problem.MPCParams, cfg: WalkConfig, prox, w_prox_u,
     C = C * fac[..., None]
     d = d * fac
     return CondensedQP(H=H, g=g, C=C, d=d, E=E, row_scale=scale * fac,
-                       C_blk=W, d_blk=d_blk)
+                       C_blk=W, d_blk=d_blk,
+                       C_width=dense_row_widths(N, soft) if structured
+                       else None)

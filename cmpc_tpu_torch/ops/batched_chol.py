@@ -45,8 +45,10 @@ import torch.nn.functional as F
 
 TILE = 64                      # the kernel's tile size
 
-# launches of each CUDA kernel, counted where its wrapper launches it
-LAUNCHES = {"chol_inv_tile": 0, "chol_tile": 0, "chol_solve": 0}
+# launches of each CUDA kernel, counted where its wrapper launches it (the
+# Newton matrix's kernel by ``ops/pdip.newton_matrix``)
+LAUNCHES = {"chol_inv_tile": 0, "chol_tile": 0, "chol_solve": 0,
+            "newton_matrix": 0}
 
 
 def _chol_tile_loop(A):
@@ -144,11 +146,19 @@ _P, _S, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # a row stride and a tile stride, then the tile count and the stream;
 # chol_solve takes L (pointer, row and scenario strides), Dinv (pointer,
 # row, block and scenario strides), b and x (pointer, scenario stride),
-# then the block count, the batch and the stream
+# then the block count, the batch and the stream; newton_matrix takes H and
+# C (pointer, scenario and row strides), the scaling (pointer, scenario
+# stride), C_blk (pointer, scenario, stage and row strides), the row order
+# and the rows per block row, M (pointer, scenario and row strides), reg,
+# then n, m_d, the stage block's three sizes, the batch and the stream
 _ARGTYPES = {"chol_inv_tile": [_P, _S, _S] * 3 + [_I, _P],
              "chol_tile": [_P, _S, _S] * 2 + [_I, _P],
              "chol_solve": [_P, _S, _S, _P, _S, _S, _S, _P, _S, _P, _S,
-                            _I, _I, _P]}
+                            _I, _I, _P],
+             "newton_matrix": [_P, _S, _S] * 2 + [_P, _S, _P, _S, _S, _S,
+                                                  _P, _P, _P, _S, _S,
+                                                  ctypes.c_double]
+             + [_I] * 6 + [_P]}
 
 
 @functools.lru_cache(maxsize=None)

@@ -286,7 +286,7 @@ def _condip(state, params, cfg, soft_q, warm, cond, qp_solve, search,
     for _ in range(cfg.sqp_iters):
         qp = cond(it, params, soft_q, cfg)
         res = qp_solve(qp.H, qp.g, qp.C, qp.d, settings, C_blk=qp.C_blk,
-                       d_blk=qp.d_blk)
+                       d_blk=qp.d_blk, C_width=qp.C_width)
         it = search(it, qp, res, params, cfg)
     return finish(it, state, params, cfg)
 

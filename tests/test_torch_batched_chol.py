@@ -271,7 +271,8 @@ def test_wrapper_dispatch_cpu_and_refusal():
 def test_chol_tile_wrapper_dispatch_cpu_and_refusal():
     """The factor-only wrapper: CPU tensors take chol_tile_ref and count no
     launch; a device with no kernel raises instead of falling back."""
-    assert set(tbc.LAUNCHES) == {"chol_inv_tile", "chol_tile", "chol_solve"}
+    assert set(tbc.LAUNCHES) == {"chol_inv_tile", "chol_tile", "chol_solve",
+                                 "newton_matrix"}
     M = torch.tensor(_spd(np.random.default_rng(8), 2, 64, dtype=np.float32))
     n0 = dict(tbc.LAUNCHES)
     assert torch.equal(tbc.chol_tile(M), tbc.chol_tile_ref(M))

@@ -386,9 +386,10 @@ def _recorded_params(device, ticks):
 
 def test_cuda_solve_matches_cpu(cuda):
     """One batched solve (3 SQP x 8 IPM iterations) through the kernels:
-    120 tile launches and 96 substitutions (2 right-hand sides x (1 +
-    refine) per IPM iteration) on the card, none on the CPU, which forms
-    the explicit inverse; the same z and residuals as the CPU run (f64,
+    120 tile launches, 96 substitutions (2 right-hand sides x (1 +
+    refine) per IPM iteration) and 24 Newton matrices on the card, none on
+    the CPU, which runs their plain versions; the same z and residuals as
+    the CPU run (f64,
     1e-8 — the tolerance the CPU solve is held to against JAX)."""
     ticks = [250, 262, 300, 420]
     out = {}
@@ -399,8 +400,10 @@ def test_cuda_solve_matches_cpu(cuda):
         out[dev.type] = sqp.solve_mpc(st, p, CFG)
         launches = tbc.LAUNCHES["chol_inv_tile"] - n0["chol_inv_tile"]
         solves = tbc.LAUNCHES["chol_solve"] - n0["chol_solve"]
+        formed = tbc.LAUNCHES["newton_matrix"] - n0["newton_matrix"]
         assert launches == (120 if dev.type == "cuda" else 0)
         assert solves == (96 if dev.type == "cuda" else 0)
+        assert formed == (24 if dev.type == "cuda" else 0)
     (sc_, ic), (sg, ig) = out["cpu"], out["cuda"]
     np.testing.assert_allclose(sg.z.cpu().numpy(), sc_.z.numpy(), rtol=0,
                                atol=1e-8)
@@ -652,3 +655,185 @@ def test_cuda_condense_dense_f32_matches_cpu_f64(cuda):
         scale = max(1.0, float(b.abs().max()))
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
                                    atol=1e-4 * scale, err_msg=name)
+
+
+# ---- the Newton matrix kernel (csrc/newton_matrix.cu) ----
+
+def _newton_qp(B, n, m_d, blk, dtype, widths, seed):
+    """Random (H, C, dscale, C_blk) of the condensed QP's shapes on the
+    card: H symmetric, C exactly 0 past its rows' widths where given,
+    dscale spread over 1e-4 .. 1e4 as the interior point's scaling is."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(B, n, n, generator=g, device="cuda", dtype=torch.float64)
+    H = X + X.transpose(1, 2)
+    C = torch.randn(B, m_d, n, generator=g, device="cuda",
+                    dtype=torch.float64)
+    if widths is not None:
+        w = torch.tensor(widths, device="cuda")
+        C = C * (torch.arange(n, device="cuda")[None, :] < w[:, None])
+    Nb, rb, cb = (10, 40, 24) if blk else (0, 0, 0)
+    dscale = torch.exp(torch.empty(B, m_d + Nb * rb, device="cuda",
+                                   dtype=torch.float64)
+                       .uniform_(-9.0, 9.0, generator=g))
+    C_blk = torch.randn(B, Nb, rb, cb, generator=g, device="cuda",
+                        dtype=torch.float64) if blk else None
+    return tuple(None if x is None else x.to(dtype)
+                 for x in (H, C, dscale, C_blk))
+
+
+_NEWTON_CASES = {
+    "b2048_n320_blk_f32": (2048, 320, 141, True, torch.float32),
+    "b2048_n320_blk_f64": (2048, 320, 141, True, torch.float64),
+    "b64_n331_f32": (64, 331, 152, False, torch.float32),
+    "b64_n331_f64": (64, 331, 152, False, torch.float64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_NEWTON_CASES))
+def test_cuda_newton_matrix_within_its_bound(case, cuda):
+    """The kernel's M against the plain expression in f64, entry by entry,
+    within 8 (m_d + 2) u (|H| + sum dd |c||c| + |stage term| + reg), u the
+    unit roundoff of the type: at the condip solve's shapes (n = 320 with
+    the stage blocks and the rows' widths, as the solve launches it; the
+    soft route's n = 331 without either), in f32 and f64.  Leaving out the
+    rows that are 0 on a tile changes no bit."""
+    from cmpc_tpu_torch.ocp import condense
+    from cmpc_tpu_torch.ops import pdip
+    B, n, m_d, blk, dtype = _NEWTON_CASES[case]
+    widths = condense.dense_row_widths(CFG.N, False) if blk else None
+    H, C, dscale, C_blk = _newton_qp(B, n, m_d, blk, dtype, widths, seed=n)
+    reg = 1e-7 if dtype == torch.float32 else 1e-8
+    n0 = tbc.LAUNCHES["newton_matrix"]
+    M = pdip.newton_matrix(H, C, dscale, reg, C_blk, widths)
+    assert tbc.LAUNCHES["newton_matrix"] == n0 + 1
+    assert M.shape == (B, n, n) and M.dtype == dtype
+
+    def f64(x, f=lambda t: t):
+        return None if x is None else f(x.double())
+    want = pdip.newton_matrix_ref(f64(H), f64(C), f64(dscale), reg,
+                                  f64(C_blk))
+    size = pdip.newton_matrix_ref(f64(H, torch.abs), f64(C, torch.abs),
+                                  f64(dscale), reg, f64(C_blk, torch.abs))
+    bound = 8 * (m_d + 2) * torch.finfo(dtype).eps / 2 * size
+    assert bool(((M.double() - want).abs() <= bound).all())
+    if widths is not None:
+        assert torch.equal(pdip.newton_matrix(H, C, dscale, reg, C_blk), M)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_newton_matrix_graph_replay_is_eager_bit_for_bit(dtype, cuda):
+    """The kernel captured into a CUDA graph and replayed on new inputs
+    gives the eager launch's M on them bit for bit, as do strided views of
+    the inputs (rows longer than n)."""
+    from cmpc_tpu_torch.ocp import condense
+    from cmpc_tpu_torch.ops import pdip
+    widths = condense.dense_row_widths(CFG.N, False)
+    args = [_newton_qp(256, 320, 141, True, dtype, widths, seed=s)
+            for s in (1, 2)]
+    buf = [x.clone() for x in args[0]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pdip.newton_matrix(*buf[:3], 1e-7, buf[3], widths)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = pdip.newton_matrix(*buf[:3], 1e-7, buf[3], widths)
+    torch.cuda.current_stream().wait_stream(side)
+    for H, C, dscale, C_blk in args:
+        for x, y in zip(buf, (H, C, dscale, C_blk)):
+            x.copy_(y)
+        graph.replay()
+        eager = pdip.newton_matrix(H, C, dscale, 1e-7, C_blk, widths)
+        assert torch.equal(out, eager)
+        Hv = torch.zeros(256, 320, 333, dtype=dtype, device=cuda)[:, :, :320]
+        Cv = torch.zeros(256, 141, 330, dtype=dtype, device=cuda)[:, :, :320]
+        Hv.copy_(H)
+        Cv.copy_(C)
+        assert torch.equal(pdip.newton_matrix(Hv, Cv, dscale, 1e-7, C_blk,
+                                              widths), eager)
+
+
+def _plain_sums_rows_in_order(device):
+    """Whether the plain expression, at the condip solve's shapes (256
+    scenarios, n = 320, 141 dense rows, the stage blocks), sums each
+    element's rows one at a time in C's order on this card's library: row 0
+    adds 2**24 and every later row 1, which a sum in that order rounds away
+    (2**24 + 1 ties to 2**24) and any other order keeps in part."""
+    from cmpc_tpu_torch.ops import pdip
+    B, n, m_d, Nb, rb, cb = 256, 320, 141, 10, 40, 24
+    C = torch.ones(B, m_d, n, device=device)
+    C[:, 0] = 4096.0
+    C_blk = torch.ones(B, Nb, rb, cb, device=device)
+    C_blk[:, :, 0] = 4096.0
+    M = pdip.newton_matrix_ref(torch.zeros(B, n, n, device=device), C,
+                               torch.ones(B, m_d + Nb * rb, device=device),
+                               0.0, C_blk)
+    want = torch.full_like(M, 2.0 ** 24)
+    for i in range(Nb):
+        want[:, 32 * i:32 * i + cb, 32 * i:32 * i + cb] = 2.0 ** 25
+    return torch.equal(M, want)
+
+
+def test_cuda_newton_matrix_is_the_plain_expression_on_the_solve(
+        cuda, monkeypatch):
+    """On the condip solve's own data (256 recorded walk ticks, f32, two
+    warm solves of 3 SQP x 8 IPM iterations) every M the kernel forms
+    equals the plain expression's on the card bit for bit: each sum runs
+    row by row in C's order with one fused multiply-add a row, as the
+    library product's does, and the rows it leaves out would add exact
+    zeros.  So the solve is the one the plain expression gives.
+
+    Pinned to the library's order of summation (cuBLAS with torch 2.11 and
+    CUDA 12.8 sums row by row at these shapes): where the plain
+    expression's own order differs, as _plain_sums_rows_in_order shows, the
+    bits cannot agree with a correct kernel and the test skips;
+    test_cuda_newton_matrix_within_its_bound still holds the kernel."""
+    from cmpc_tpu_torch.ops import pdip
+    if not _plain_sums_rows_in_order(cuda):
+        pytest.skip("the library product does not sum C's rows in order "
+                    "at the solve's shapes; the kernel's bits follow that "
+                    "order")
+    p = _recorded_params(cuda, list(range(120, 120 + 2 * 256, 2)))
+    p = type(p)(*(x.float() if x.is_floating_point() else x for x in p))
+    kernel, same = pdip.newton_matrix, []
+
+    def compared(H, C, dscale, reg, C_blk=None, C_width=None):
+        M = kernel(H, C, dscale, reg, C_blk, C_width)
+        same.append(torch.equal(
+            M, pdip.newton_matrix_ref(H, C, dscale, reg, C_blk)))
+        return M
+
+    monkeypatch.setattr(pdip, "newton_matrix", compared)
+    st = sqp.init_solver_state(CFG, p.x0, mass=p.mass)
+    for _ in range(2):
+        st, _ = sqp._solve_mpc_condip_eager(st, p, CFG)
+    assert len(same) == 2 * CFG.sqp_iters * CFG.pdip_iters and all(same)
+
+
+def test_cuda_newton_matrix_launches_24_per_condip_solve(cuda):
+    """One condip solve forms the Newton matrix once an IPM iteration, 3 x
+    8 = 24 kernel launches, replayed from the graphs as launched eagerly."""
+    p = _recorded_params(cuda, [250, 262, 300, 420])
+    p = type(p)(*(x.float() if x.is_floating_point() else x for x in p))
+    st = sqp.init_solver_state(CFG, p.x0, mass=p.mass)
+    per = CFG.sqp_iters * CFG.pdip_iters
+    for solve in (sqp._solve_mpc_condip_eager, sqp.solve_mpc, sqp.solve_mpc):
+        n0 = tbc.LAUNCHES["newton_matrix"]
+        solve(st, p, CFG)
+        assert tbc.LAUNCHES["newton_matrix"] - n0 == per == 24
+
+
+def test_cuda_newton_matrix_rejects_bad_input(cuda):
+    """A CUDA launch refuses inputs on two devices and inputs of other
+    types, before it launches."""
+    from cmpc_tpu_torch.ops import pdip
+    H, C, dscale, _ = _newton_qp(2, 64, 9, False, torch.float32, None, 1)
+    n0 = tbc.LAUNCHES["newton_matrix"]
+    with pytest.raises(ValueError, match="devices"):
+        pdip.newton_matrix(H, C.cpu(), dscale, 1e-7)
+    with pytest.raises(TypeError, match="match"):
+        pdip.newton_matrix(H, C.double(), dscale, 1e-7)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        pdip.newton_matrix(H.to("meta"), C.to("meta"), dscale.to("meta"),
+                           1e-7)
+    assert tbc.LAUNCHES["newton_matrix"] == n0

@@ -126,7 +126,8 @@ def test_an_answer_outlives_later_replays(cuda):
 def test_one_capture_per_stage_and_the_launch_counts(cuda):
     """A signature not seen before (B = 3) captures each stage once, on its
     first solve; every solve replays 2 + 3 x sqp_iters graphs and counts
-    120 tile and 96 substitution launches, as the eager solve does."""
+    120 tile, 96 substitution and 24 Newton matrix launches, as the eager
+    solve does."""
     params = _chain_params(3, torch.float32, cuda, seed=3)
     state = sqp.init_solver_state(CFG, params[0].x0, mass=params[0].mass)
     c0, n0 = dict(graphs.COUNTS), dict(tbc.LAUNCHES)
@@ -137,11 +138,14 @@ def test_one_capture_per_stage_and_the_launch_counts(cuda):
         assert tbc.LAUNCHES["chol_inv_tile"] - n0["chol_inv_tile"] \
             == 120 * (k + 1)
         assert tbc.LAUNCHES["chol_solve"] - n0["chol_solve"] == 96 * (k + 1)
+        assert tbc.LAUNCHES["newton_matrix"] - n0["newton_matrix"] \
+            == 24 * (k + 1)
         assert tbc.LAUNCHES["chol_tile"] == n0["chol_tile"]
     n1 = dict(tbc.LAUNCHES)
     sqp._solve_mpc_condip_eager(state, params[4], CFG)
     assert tbc.LAUNCHES["chol_inv_tile"] - n1["chol_inv_tile"] == 120
     assert tbc.LAUNCHES["chol_solve"] - n1["chol_solve"] == 96
+    assert tbc.LAUNCHES["newton_matrix"] - n1["newton_matrix"] == 24
 
 
 def _to(tree, device):

@@ -80,6 +80,8 @@ def test_on_the_tick_spans_nest(case):
             assert parent(ann, a) is None
         elif a[0] in LOOP_SPANS:
             assert parent(ann, a) == "closed_loop.tick", a
+        elif a[0] == "pdip.newton_matrix":
+            assert parent(ann, a) == "pdip.pdip_solve"
         else:
             assert a[0] in SOLVE_SPANS and parent(ann, a) == "sqp.solve_mpc"
 

@@ -30,6 +30,7 @@ TICKS = np.array([150, 250, 262, 300, 420, 520])
 WARM = 3
 SOLVE_SPANS = ("sqp.warm_start", "condense.build", "pdip.pdip_solve",
                "sqp.line_search")
+IPM_SPANS = ("pdip.newton_matrix",)     # inside pdip.pdip_solve
 KERNEL_COUNTERS = {"batched_chol.LAUNCHES", "cuda_build.BUILD_SECONDS",
                    "graphs.captures", "graphs.replays"}
 
@@ -114,11 +115,14 @@ def test_on_nests_the_solve_spans(problem):
     assert names.count("sqp.solve_mpc") == 1
     want = {"sqp.warm_start": 1, "condense.build": CFG.sqp_iters,
             "pdip.pdip_solve": CFG.sqp_iters,
+            "pdip.newton_matrix": CFG.sqp_iters * CFG.pdip_iters,
             "sqp.line_search": CFG.sqp_iters}
     assert {n: names.count(n) for n in want} == want
-    assert set(names) == {"sqp.solve_mpc", *SOLVE_SPANS}
+    assert set(names) == {"sqp.solve_mpc", *SOLVE_SPANS, *IPM_SPANS}
     for a in ann:
         assert parent(ann, a) == (None if a[0] == "sqp.solve_mpc"
+                                  else "pdip.pdip_solve"
+                                  if a[0] in IPM_SPANS
                                   else "sqp.solve_mpc")
 
 
